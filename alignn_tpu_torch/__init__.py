@@ -1,0 +1,31 @@
+"""PyTorch/CUDA port of alignn_tpu for NVIDIA Hopper (H100).
+
+The package mirrors the module names of the JAX package ``alignn_tpu`` and
+imports nothing of it (nor of ``jax``/``flax``): torch, numpy and the
+standard library only.  Hand-written CUDA kernels live in ``csrc/`` and
+are compiled at first use by :mod:`alignn_tpu_torch._build`.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None
+                   ) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller asks.
+
+    Asking for nothing on a host without a GPU raises instead of running
+    silently on the CPU.
+    """
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "alignn_tpu_torch runs on CUDA by default and no CUDA device "
+                "is available; pass device='cpu' to run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)

@@ -1,0 +1,204 @@
+"""Padded batch of crystal graphs, as tensors on one device.
+
+Counterpart of ``alignn_tpu/graph/batch.py``.  The batch is assembled in
+numpy with the same padding rules and moved to the device once:
+
+- every axis keeps at least one trailing trash slot: padded edges point
+  src/dst at the trash node N-1, padded nodes belong to graph slot G-1,
+  padded L-edges point at the trash edge E-1, so garbage only flows into
+  masked slots;
+- padded bond vectors are r = (1, 0, 0), so no norm is zero and no NaN
+  enters autograd.
+
+Because dst and lg_dst are ascending (trash slots last), each message
+passing stage is a set of contiguous segments.  Their CSR pointers, and
+those of the argsorted src / lg_src, are built once here
+(:class:`~alignn_tpu_torch.ops.eggc.Segments`) and read by every layer.
+Gather windows of the JAX package are not ported: the Calculator
+batches without them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+from alignn_tpu_torch.chem.features import attribute_lookup_table
+from alignn_tpu_torch.graph.build import GraphData
+from alignn_tpu_torch.ops.eggc import Segments
+
+
+@dataclass(frozen=True)
+class Incidence:
+    """Index arrays of one message-passing stage (g or its line graph)."""
+
+    src: torch.Tensor           # [E] int64
+    src_perm: torch.Tensor      # [E] int64, stable argsort(src)
+    src_perm_inv: torch.Tensor  # [E] int64
+    src_sorted: Segments        # segments of src[src_perm]
+    dst: Segments               # segments of the ascending dst
+
+
+@dataclass
+class GraphBatch:
+    """A padded batch of crystal graphs + line graphs."""
+
+    # nodes [N]
+    z: torch.Tensor              # int64 atomic numbers (0 = pad)
+    atom_features: torch.Tensor  # [N, F]
+    frac_coords: torch.Tensor    # [N, 3]
+    node_graph: torch.Tensor     # [N] int64 graph slot (pad -> G-1)
+    node_mask: torch.Tensor      # [N] {0,1}
+    # edges [E]
+    src: torch.Tensor            # [E] int64 (pad -> N-1)
+    dst: torch.Tensor            # [E] int64, ascending (pad -> N-1)
+    r: torch.Tensor              # [E, 3] displacement src -> dst
+    images: torch.Tensor         # [E, 3]
+    edge_graph: torch.Tensor     # [E] int64 (pad -> G-1)
+    edge_mask: torch.Tensor      # [E]
+    # line-graph edges [L]
+    lg_src: torch.Tensor         # [L] int64 edge ids (pad -> E-1)
+    lg_dst: torch.Tensor         # [L] int64, ascending (pad -> E-1)
+    lg_mask: torch.Tensor        # [L]
+    # graphs [G]
+    lattice: torch.Tensor        # [G, 3, 3]
+    volume: torch.Tensor         # [G]
+    n_nodes: torch.Tensor        # [G] real atom counts
+    graph_mask: torch.Tensor     # [G]
+    # message-passing stages: g (atoms <- bonds), L(g) (bonds <- angles)
+    g_index: Incidence
+    lg_index: Incidence
+
+
+@dataclass(frozen=True)
+class BucketSpec:
+    """Static pad sizes (nodes, edges, lg-edges, graphs) for a batch."""
+
+    n_nodes: int
+    n_edges: int
+    n_lg_edges: int
+    n_graphs: int
+
+    @staticmethod
+    def tight_for_batch(graphs: Sequence[GraphData], node_quantum: int = 128,
+                        edge_quantum: int = 128,
+                        lg_quantum: int = 512) -> "BucketSpec":
+        """Bucket sized for exactly this batch."""
+        return BucketSpec(
+            n_nodes=_round_up(sum(g.num_nodes for g in graphs) + 1,
+                              node_quantum),
+            n_edges=_round_up(sum(g.num_edges for g in graphs) + 1,
+                              edge_quantum),
+            n_lg_edges=_round_up(sum(g.num_lg_edges for g in graphs) + 1,
+                                 lg_quantum),
+            n_graphs=len(graphs) + 1,
+        )
+
+
+def _round_up(x: int, quantum: int) -> int:
+    return ((x + quantum - 1) // quantum) * quantum
+
+
+def _incidence(src: np.ndarray, dst: np.ndarray, num_dst: int,
+               num_src: int, device: torch.device) -> Incidence:
+    if np.any(np.diff(dst) < 0):
+        raise ValueError("dst must be ascending: the segment kernels "
+                         "reduce contiguous row ranges")
+    perm = np.argsort(src, kind="stable")
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(perm.shape[0])
+
+    def t(a):
+        return torch.as_tensor(a.astype(np.int64)).to(device)
+
+    src_t = t(src)
+    perm_t = t(perm)
+    return Incidence(
+        src=src_t, src_perm=perm_t, src_perm_inv=t(inv),
+        src_sorted=Segments.from_sorted(src_t[perm_t], num_src),
+        dst=Segments.from_sorted(t(dst), num_dst))
+
+
+def batch_graphs(graphs: List[GraphData], spec: BucketSpec,
+                 device: torch.device, atom_features: str = "cgcnn",
+                 dtype: torch.dtype = torch.float32) -> GraphBatch:
+    """Concatenate + pad graphs into one :class:`GraphBatch` on `device`."""
+    n_pad, e_pad = spec.n_nodes, spec.n_edges
+    l_pad, g_pad = spec.n_lg_edges, spec.n_graphs
+    n_tot = sum(g.num_nodes for g in graphs)
+    e_tot = sum(g.num_edges for g in graphs)
+    l_tot = sum(g.num_lg_edges for g in graphs)
+    if n_tot >= n_pad or e_tot >= e_pad or l_tot >= l_pad or \
+            len(graphs) >= g_pad:
+        raise ValueError(
+            f"batch ({n_tot}n/{e_tot}e/{l_tot}l/{len(graphs)}g) overflows "
+            f"bucket ({n_pad}/{e_pad}/{l_pad}/{g_pad})")
+    feat_table = attribute_lookup_table(atom_features)
+
+    z = np.zeros(n_pad, dtype=np.int64)
+    frac = np.zeros((n_pad, 3))
+    node_graph = np.full(n_pad, g_pad - 1, dtype=np.int64)
+    node_mask = np.zeros(n_pad)
+    src = np.full(e_pad, n_pad - 1, dtype=np.int64)
+    dst = np.full(e_pad, n_pad - 1, dtype=np.int64)
+    r = np.zeros((e_pad, 3))
+    r[:, 0] = 1.0  # pad displacement: unit x, nonzero norm
+    images = np.zeros((e_pad, 3))
+    edge_graph = np.full(e_pad, g_pad - 1, dtype=np.int64)
+    edge_mask = np.zeros(e_pad)
+    lg_src = np.full(l_pad, e_pad - 1, dtype=np.int64)
+    lg_dst = np.full(l_pad, e_pad - 1, dtype=np.int64)
+    lg_mask = np.zeros(l_pad)
+    lattice = np.tile(np.eye(3), (g_pad, 1, 1))
+    volume = np.ones(g_pad)
+    n_nodes = np.zeros(g_pad)
+    graph_mask = np.zeros(g_pad)
+
+    n_off = e_off = l_off = 0
+    for gi, g in enumerate(graphs):
+        ns = slice(n_off, n_off + g.num_nodes)
+        es = slice(e_off, e_off + g.num_edges)
+        ls = slice(l_off, l_off + g.num_lg_edges)
+        z[ns] = g.z
+        frac[ns] = g.frac_coords
+        node_graph[ns] = gi
+        node_mask[ns] = 1.0
+        src[es] = g.src + n_off
+        dst[es] = g.dst + n_off
+        r[es] = g.r
+        images[es] = g.images
+        edge_graph[es] = gi
+        edge_mask[es] = 1.0
+        if g.num_lg_edges:
+            lg_src[ls] = g.lg_src + e_off
+            lg_dst[ls] = g.lg_dst + e_off
+            lg_mask[ls] = 1.0
+        lattice[gi] = g.lattice
+        volume[gi] = g.volume
+        n_nodes[gi] = g.num_nodes
+        graph_mask[gi] = 1.0
+        n_off += g.num_nodes
+        e_off += g.num_edges
+        l_off += g.num_lg_edges
+
+    def f(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float64)).to(
+            device=device, dtype=dtype)
+
+    def i(a):
+        return torch.as_tensor(a).to(device)
+
+    return GraphBatch(
+        z=i(z), atom_features=f(feat_table[z]), frac_coords=f(frac),
+        node_graph=i(node_graph), node_mask=f(node_mask),
+        src=i(src), dst=i(dst), r=f(r), images=f(images),
+        edge_graph=i(edge_graph), edge_mask=f(edge_mask),
+        lg_src=i(lg_src), lg_dst=i(lg_dst), lg_mask=f(lg_mask),
+        lattice=f(lattice), volume=f(volume), n_nodes=f(n_nodes),
+        graph_mask=f(graph_mask),
+        g_index=_incidence(src, dst, n_pad, n_pad, device),
+        lg_index=_incidence(lg_src, lg_dst, e_pad, e_pad, device),
+    )

@@ -1,0 +1,121 @@
+"""Core modules: layer norm, MLP block, edge-gated graph convolution.
+
+Counterpart of ``alignn_tpu/nn/layers.py`` on the sparse layout.  Module
+and attribute names follow the flax parameter tree (``src_gate``,
+``norm_nodes``, ...), so :mod:`alignn_tpu_torch.nn.convert` maps a
+checkpoint mechanically.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from alignn_tpu_torch.graph.batch import Incidence
+from alignn_tpu_torch.ops.basis import rbf_expand, rbf_params
+from alignn_tpu_torch.ops.eggc import (gated_aggregate, gather_nodes,
+                                       sorted_gather)
+
+# flax's Dense: y = x @ kernel + bias with torch's default init, which is
+# exactly nn.Linear (the checkpoint converter transposes the kernel)
+Dense = nn.Linear
+
+
+class MaskedLayerNorm(nn.Module):
+    """Row-wise LayerNorm (eps 1e-5, affine).
+
+    Statistics and affine run in at least f32; the output keeps the input
+    dtype.
+    """
+
+    def __init__(self, features: int, epsilon: float = 1e-5):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.epsilon = epsilon
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)
+        y = (xf - mean) * torch.rsqrt(var + self.epsilon)
+        return (y * self.weight + self.bias).to(x.dtype)
+
+
+class RBFExpansion(nn.Module):
+    """Gaussian RBF expansion (no parameters)."""
+
+    def __init__(self, vmin: float = 0.0, vmax: float = 8.0,
+                 bins: int = 40, lengthscale: float | None = None):
+        super().__init__()
+        centers, self.gamma = rbf_params(vmin, vmax, bins, lengthscale)
+        self.register_buffer(
+            "centers", torch.tensor(centers, dtype=torch.float32),
+            persistent=False)
+
+    def forward(self, distance: torch.Tensor) -> torch.Tensor:
+        return rbf_expand(distance, self.centers, self.gamma)
+
+
+class MLPLayer(nn.Module):
+    """Linear -> LayerNorm -> SiLU."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.linear = Dense(in_features, features)
+        self.norm = MaskedLayerNorm(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.silu(self.norm(self.linear(x)))
+
+
+class EdgeGatedGraphConv(nn.Module):
+    """Edge-gated graph convolution, sparse layout:
+
+        m_e   = W_sg x_src + W_dg x_dst + W_eg e
+        h_i   = sum_{e->i} sigma(m_e) W_du x_src(e) / (sum sigma(m_e) + 1e-6)
+        x'    = x + SiLU(LN(W_su x + h))
+        e'    = e + SiLU(LN(m))
+
+    ("dst_update" acts on source features: the reference's naming.)  The
+    src-side gathers ride one concatenated gather whose transpose is a
+    sorted segment sum (K2); the dst-side gather transposes into K2
+    directly; the aggregation is K1.
+    """
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.features = features
+        for name in ("src_gate", "dst_gate", "edge_gate", "src_update",
+                     "dst_update"):
+            setattr(self, name, Dense(features, features))
+        self.norm_nodes = MaskedLayerNorm(features)
+        self.norm_edges = MaskedLayerNorm(features)
+
+    def forward(self, x: torch.Tensor, e: torch.Tensor, g: Incidence):
+        f = self.features
+        cat_e = gather_nodes(
+            torch.cat([self.src_gate(x), self.dst_update(x)], dim=-1),
+            g.src, g.src_perm, g.src_perm_inv, g.src_sorted)
+        sg_e, bh_e = cat_e[:, :f], cat_e[:, f:]
+        dg_e = sorted_gather(self.dst_gate(x), g.dst)
+        m = sg_e + dg_e + self.edge_gate(e)
+        h = gated_aggregate(m, bh_e, g.dst)
+        x_new = x + F.silu(self.norm_nodes(self.src_update(x) + h))
+        e_new = e + F.silu(self.norm_edges(m))
+        return x_new, e_new
+
+
+class ALIGNNConv(nn.Module):
+    """One ALIGNN layer: EGGC on g, then EGGC on L(g)."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.node_update = EdgeGatedGraphConv(features)
+        self.edge_update = EdgeGatedGraphConv(features)
+
+    def forward(self, x, y, z, g: Incidence, lg: Incidence):
+        x, m = self.node_update(x, y, g)
+        y, z = self.edge_update(m, z, lg)
+        return x, y, z

@@ -1,0 +1,284 @@
+"""ALIGNN-FF model (atomwise, LayerNorm flavour) and its E/F/S forward.
+
+Counterpart of ``alignn_tpu/nn/models.py`` for ``ALIGNNAtomWise`` on the
+sparse layout.  Angle cosines are recomputed from the bond vectors `r`
+inside the forward, so the gradient of the energy with respect to `r`
+carries the 3-body terms; forces and the virial stress come from that
+gradient (:func:`atomwise_forward`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+import torch
+from torch import nn
+
+from alignn_tpu_torch.graph.batch import GraphBatch
+from alignn_tpu_torch.nn.layers import (ALIGNNConv, Dense, EdgeGatedGraphConv,
+                                        MLPLayer, RBFExpansion)
+from alignn_tpu_torch.ops.basis import (bond_cosines,
+                                        cutoff_function_based_edges)
+from alignn_tpu_torch.ops.segment import graph_readout_mean, segment_sum
+
+EV_A3_TO_GPA = 160.21766208  # 1 eV/Angstrom^3 in GPa
+
+
+@dataclasses.dataclass(frozen=True)
+class ALIGNNAtomWiseConfig:
+    """Hyperparameters of the FF model (same fields as the JAX package)."""
+
+    name: str = "alignn_atomwise"
+    alignn_layers: int = 4
+    gcn_layers: int = 4
+    atom_input_features: int = 92
+    edge_input_features: int = 80
+    triplet_input_features: int = 40
+    embedding_features: int = 64
+    hidden_features: int = 256
+    output_features: int = 1
+    grad_multiplier: float = -1.0
+    calculate_gradient: bool = True
+    atomwise_output_features: int = 0
+    graphwise_weight: float = 1.0
+    gradwise_weight: float = 1.0
+    stresswise_weight: float = 0.0
+    atomwise_weight: float = 0.0
+    link: str = "identity"
+    zero_inflated: bool = False
+    classification: bool = False
+    force_mult_natoms: bool = False
+    energy_mult_natoms: bool = True
+    include_pos_deriv: bool = False
+    use_cutoff_function: bool = False
+    inner_cutoff: float = 3.0
+    stress_multiplier: float = 1.0
+    add_reverse_forces: bool = True
+    lg_on_fly: bool = True
+    batch_stress: bool = True
+    multiply_cutoff: bool = False
+    use_penalty: bool = True
+    extra_features: int = 0
+    exponent: int = 5
+    penalty_factor: float = 0.1
+    penalty_threshold: float = 1.0
+    additional_output_features: int = 0
+    additional_output_weight: float = 0.0
+    remat_layers: bool = False
+    envelope_edge_weights: bool = False
+    envelope_cutoff: float = 0.0
+
+    def __post_init__(self):
+        if self.gradwise_weight == 0:
+            object.__setattr__(self, "calculate_gradient", False)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "ALIGNNAtomWiseConfig":
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
+
+
+def _apply_link(out: torch.Tensor, link: str) -> torch.Tensor:
+    if link == "log":
+        return torch.exp(out)
+    if link == "logit":
+        return torch.sigmoid(out)
+    return out
+
+
+class _Embeddings(nn.Module):
+    """Atom / bond / angle embedding stack."""
+
+    def __init__(self, cfg: ALIGNNAtomWiseConfig):
+        super().__init__()
+        hid, emb = cfg.hidden_features, cfg.embedding_features
+        self.atom_embedding = MLPLayer(cfg.atom_input_features, hid)
+        self.edge_rbf = RBFExpansion(0.0, 8.0, cfg.edge_input_features)
+        self.edge_embedding_0 = MLPLayer(cfg.edge_input_features, emb)
+        self.edge_embedding_1 = MLPLayer(emb, hid)
+        self.angle_rbf = RBFExpansion(-1.0, 1.0, cfg.triplet_input_features)
+        self.angle_embedding_0 = MLPLayer(cfg.triplet_input_features, emb)
+        self.angle_embedding_1 = MLPLayer(emb, hid)
+
+    def forward(self, batch: GraphBatch, bondlength, cosines,
+                edge_scale=None):
+        x = self.atom_embedding(batch.atom_features)
+        y = self.edge_embedding_1(self.edge_embedding_0(
+            self.edge_rbf(bondlength)))
+        if edge_scale is not None:
+            y = y * edge_scale[:, None]
+        z = self.angle_embedding_1(self.angle_embedding_0(
+            self.angle_rbf(cosines)))
+        return x, y, z
+
+
+class _Trunk(nn.Module):
+    """ALIGNN conv stack + GCN stack."""
+
+    def __init__(self, cfg: ALIGNNAtomWiseConfig):
+        super().__init__()
+        self.alignn_layers = cfg.alignn_layers
+        self.gcn_layers = cfg.gcn_layers
+        for i in range(cfg.alignn_layers):
+            setattr(self, f"alignn_layers_{i}",
+                    ALIGNNConv(cfg.hidden_features))
+        for i in range(cfg.gcn_layers):
+            setattr(self, f"gcn_layers_{i}",
+                    EdgeGatedGraphConv(cfg.hidden_features))
+
+    def forward(self, batch: GraphBatch, x, y, z):
+        for i in range(self.alignn_layers):
+            x, y, z = getattr(self, f"alignn_layers_{i}")(
+                x, y, z, batch.g_index, batch.lg_index)
+        for i in range(self.gcn_layers):
+            x, y = getattr(self, f"gcn_layers_{i}")(x, y, batch.g_index)
+        return x, y
+
+
+class ALIGNNAtomWise(nn.Module):
+    """FF model core.  ``forward(batch, r)`` takes the bond vectors so that
+    callers can differentiate the energy with respect to them.
+
+    Returns a dict with `out` [G, T], `en_out` [G] (energy entering the
+    force computation, incl. natoms multiplication and the short-bond
+    penalty), `atomwise_pred` [N, A], `additional` [G, Fadd] and
+    `bondlength` [E].
+    """
+
+    def __init__(self, cfg: ALIGNNAtomWiseConfig):
+        super().__init__()
+        if cfg.envelope_edge_weights or cfg.extra_features:
+            raise NotImplementedError(
+                "envelope_edge_weights and extra_features are not ported "
+                "yet")
+        self.cfg = cfg
+        self.embeddings = _Embeddings(cfg)
+        self.trunk = _Trunk(cfg)
+        hid = cfg.hidden_features
+        self.fc = Dense(hid, 1 if cfg.classification
+                        else cfg.output_features)
+        if cfg.additional_output_features > 0:
+            self.fc_additional_output = Dense(
+                hid, cfg.additional_output_features)
+        if cfg.atomwise_output_features > 0:
+            self.fc_atomwise = Dense(hid, cfg.atomwise_output_features)
+
+    def forward(self, batch: GraphBatch, r: torch.Tensor):
+        cfg = self.cfg
+        bondlength = torch.linalg.norm(r, dim=1)
+        cosines = bond_cosines(r, batch.lg_src, batch.lg_dst)
+        edge_scale = None
+        rbf_input = bondlength
+        if cfg.use_cutoff_function:
+            envelope = cutoff_function_based_edges(
+                bondlength, inner_cutoff=cfg.inner_cutoff,
+                exponent=cfg.exponent)
+            if cfg.multiply_cutoff:
+                edge_scale = envelope   # y = embedding(bondlength) * env
+            else:
+                rbf_input = envelope    # bondlength replaced by env
+        x, y, z = self.embeddings(batch, rbf_input, cosines, edge_scale)
+        x, _y = self.trunk(batch, x, y, z)
+        return atomwise_heads(self, batch, x, bondlength)
+
+
+def atomwise_heads(model: ALIGNNAtomWise, batch: GraphBatch,
+                   x: torch.Tensor, bondlength: torch.Tensor
+                   ) -> Dict[str, torch.Tensor]:
+    """Readout, output heads, penalty and the energy `en_out`."""
+    cfg = model.cfg
+    h = graph_readout_mean(x, batch.node_graph, batch.n_nodes)
+    out = model.fc(h)
+    result: Dict[str, torch.Tensor] = {}
+    if cfg.additional_output_features > 0:
+        result["additional"] = model.fc_additional_output(h)
+    else:
+        result["additional"] = out.new_zeros((h.shape[0], 1))
+    if cfg.atomwise_output_features > 0:
+        result["atomwise_pred"] = model.fc_atomwise(x)
+    else:
+        result["atomwise_pred"] = out.new_zeros((x.shape[0], 1))
+
+    en_out = out[:, 0] if cfg.output_features == 1 else out.sum(dim=1)
+    if cfg.energy_mult_natoms:
+        en_out = en_out * batch.n_nodes
+    if cfg.use_penalty:
+        penalties = torch.where(
+            bondlength < cfg.penalty_threshold,
+            cfg.penalty_factor * (cfg.penalty_threshold - bondlength),
+            torch.zeros_like(bondlength)) * batch.edge_mask
+        # the reference adds the batch-total penalty to every graph's
+        # energy -- kept as is
+        en_out = en_out + penalties.sum()
+
+    out = _apply_link(out, cfg.link)
+    if cfg.classification:
+        out = torch.sigmoid(out)
+    result["out"] = out
+    result["en_out"] = en_out
+    result["bondlength"] = bondlength
+    return result
+
+
+def compute_cartesian_r(batch: GraphBatch, frac_coords=None) -> torch.Tensor:
+    """Bond vectors from fractional coords + lattice:
+    r_e = cart(dst) + images_e @ lattice - cart(src); padded edges get the
+    unit-x pad displacement so their norm stays differentiable."""
+    frac = batch.frac_coords if frac_coords is None else frac_coords
+    cart = torch.einsum("ni,nij->nj", frac, batch.lattice[batch.node_graph])
+    img_cart = torch.einsum("ei,eij->ej", batch.images,
+                            batch.lattice[batch.edge_graph])
+    r = cart[batch.dst] + img_cart - cart[batch.src]
+    mask = batch.edge_mask[:, None]
+    pad_r = torch.zeros_like(r)
+    pad_r[:, 0] = 1.0
+    return r * mask + pad_r * (1.0 - mask)
+
+
+def atomwise_forward(model: ALIGNNAtomWise, batch: GraphBatch,
+                     create_graph: bool = False) -> Dict[str, torch.Tensor]:
+    """Energy, forces and stress: forces and the virial come from the
+    gradient of the summed energy with respect to the bond vectors.
+
+      pair_forces = grad_multiplier * dE/dr
+      forces_i    = sum_{e: dst=i} pf_e - sum_{e: src=i} pf_e
+      stress_g    = -stress_mult * 160.2177 * (r_g^T pf_g) / V_g
+
+    Serving passes ``create_graph=False``; training will need True.
+    """
+    cfg = model.cfg
+    num_graphs = batch.graph_mask.shape[0]
+    if not cfg.calculate_gradient:
+        res = model(batch, batch.r)
+        res["grad"] = batch.r.new_zeros((batch.z.shape[0], 3))
+        res["stresses"] = batch.r.new_zeros((num_graphs, 3, 3))
+        return res
+    if cfg.include_pos_deriv:
+        raise NotImplementedError("include_pos_deriv is not ported yet")
+
+    r = batch.r.detach().requires_grad_(True)
+    with torch.enable_grad():
+        res = model(batch, r)
+        energy = torch.sum(res["en_out"] * batch.graph_mask)
+        (g_r,) = torch.autograd.grad(energy, r, create_graph=create_graph)
+    pair_forces = cfg.grad_multiplier * g_r
+    if cfg.force_mult_natoms:
+        pair_forces = pair_forces * batch.n_nodes.sum()
+
+    num_nodes = batch.z.shape[0]
+    forces = segment_sum(pair_forces, batch.dst, num_nodes)
+    if cfg.add_reverse_forces:
+        forces = forces - segment_sum(pair_forces, batch.src, num_nodes)
+    res["grad"] = forces
+
+    if cfg.stresswise_weight != 0:
+        outer = torch.einsum("ei,ej->eij", batch.r, pair_forces)
+        per_graph = segment_sum(outer, batch.edge_graph, num_graphs)
+        div = 1.0 if cfg.batch_stress else 2.0
+        res["stresses"] = (-cfg.stress_multiplier * EV_A3_TO_GPA * per_graph
+                           / (div * torch.clamp_min(batch.volume, 1e-12)
+                              [:, None, None]))
+    else:
+        res["stresses"] = batch.r.new_zeros((num_graphs, 3, 3))
+    return res
