@@ -1,11 +1,18 @@
 """Model-backed calculator: energy / forces / stress for one structure.
 
-Counterpart of ``alignn_tpu/ff/calculator.py`` (``Calculator``) on the
-sparse layout: structure -> graph (k-NN or radius, with skin reuse for
-radius strategies) -> one-graph padded bucket -> :func:`atomwise_forward`
--> E/F/S.  Runs on ``cuda`` unless ``device="cpu"`` is passed.  A config
-that asks for the dense layout runs sparse: the layout does not change
-the function.
+Counterpart of ``alignn_tpu/ff/calculator.py`` (``Calculator``):
+structure -> graph (k-NN or radius, with skin reuse for radius
+strategies) -> one-graph padded bucket, sparse or dense-neighbourhood
+(graph/dense.py) -> :func:`atomwise_forward` -> E/F/S.  Runs on ``cuda``
+unless ``device="cpu"`` is passed.
+
+``dense`` (default: the config's ``dense_neighborhoods``) asks for the
+dense layout, routed as the JAX Calculator routes it: a graph with an
+in-degree above 20 or an edge occupancy of its D-blocks below 0.4 runs
+sparse (with a printed reason), and so does, for that call only, a graph
+without the reverse-edge involution.  k-NN graphs built with
+``use_canonize: false`` carry duplicated edges (in-degree 27-32 for
+12-NN Si), so they run sparse.
 """
 
 from __future__ import annotations
@@ -17,7 +24,8 @@ import numpy as np
 
 from alignn_tpu_torch import resolve_device
 from alignn_tpu_torch.chem.atoms import Atoms
-from alignn_tpu_torch.graph.batch import BucketSpec, batch_graphs
+from alignn_tpu_torch.graph import dense as gdense
+from alignn_tpu_torch.graph.batch import BucketSpec, GraphBatch, batch_graphs
 from alignn_tpu_torch.graph.build import (GraphData, build_graph,
                                           line_graph_edges, wrap_frac)
 from alignn_tpu_torch.nn.models import EV_A3_TO_GPA, atomwise_forward
@@ -50,7 +58,8 @@ class Calculator:
                  force_mult_natoms: bool = False, stress_wt: float = 1.0,
                  bucket_slack: float = 1.3, skin: float = 0.3,
                  force_mult_batchsize: bool = False,
-                 tie_tol: float = 1e-6, device=None):
+                 tie_tol: float = 1e-6, dense: Optional[bool] = None,
+                 device=None):
         self.device = resolve_device(device)
         if model is None:
             if path is None:
@@ -74,7 +83,13 @@ class Calculator:
         self.force_mult_batchsize = force_mult_batchsize
         self.stress_wt = stress_wt
         self.bucket_slack = bucket_slack
+        if dense is None:
+            dense = bool(self.config.get("dense_neighborhoods", False))
+        self.dense = bool(dense)
+        self._dense_warned = False
         self._spec: Optional[BucketSpec] = None
+        # the sparse bucket of a dense calculator's detours
+        self._fb_spec: Optional[BucketSpec] = None
         self._results: Optional[Dict[str, Any]] = None
         # skin-radius neighbour-list reuse (radius strategies): the
         # candidate set is built with cutoff+skin and reused while no atom
@@ -168,26 +183,70 @@ class Calculator:
         return g
 
     def bucket_for(self, g: GraphData) -> BucketSpec:
-        """The padded bucket: reused while the graph fits, grown (with
-        slack) when it overflows."""
-        spec = self._spec
+        """The padded sparse bucket: reused while the graph fits, grown
+        (with slack) when it overflows.  A dense calculator keeps the
+        bucket of its sparse detours apart from its dense one."""
+        attr = "_fb_spec" if self.dense else "_spec"
+        spec = getattr(self, attr)
         if (spec is None or g.num_nodes >= spec.n_nodes
                 or g.num_edges >= spec.n_edges
                 or g.num_lg_edges >= spec.n_lg_edges):
             s = self.bucket_slack
-            spec = self._spec = BucketSpec(
+            spec = BucketSpec(
                 n_nodes=_round_up(int(g.num_nodes * s) + 1, 128),
                 n_edges=_round_up(int(g.num_edges * s) + 1, 128),
                 n_lg_edges=_round_up(int(g.num_lg_edges * s) + 1, 512),
                 n_graphs=2)
+            setattr(self, attr, spec)
         return spec
+
+    def _dense_bucket(self, g: GraphData, indeg: int) -> BucketSpec:
+        """The dense bucket (node slack, degree headroom 2): reused while
+        the graph fits, rebuilt when it has as many nodes or a larger
+        in-degree."""
+        spec = self._spec
+        if (spec is None or not spec.dense_D or g.num_nodes >= spec.n_nodes
+                or indeg > spec.dense_D):
+            spec = self._spec = gdense.dense_spec_with_slack(
+                g, bucket_slack=self.bucket_slack)
+        return spec
+
+    def _warn_once(self, msg: str):
+        if not self._dense_warned:
+            print(f"[calculator] {msg}; using sparse")
+            self._dense_warned = True
+
+    def batch_for(self, g: GraphData) -> GraphBatch:
+        """The padded one-graph batch on the calculator's device, in the
+        dense layout when it is asked for and suits the graph."""
+        if self.dense:
+            D = gdense.max_in_degree([g])
+            occ = g.num_edges / max(g.num_nodes * max(D, 1), 1)
+            if D > 20 or occ < 0.4:
+                # N*D^2 pair rows at low occupancy cost more than they save
+                self._warn_once(
+                    f"dense layout skipped: in-degree {D} / occupancy "
+                    f"{occ:.2f} would waste the D^2 padding (k-NN builds "
+                    f"are the dense target)")
+            else:
+                spec = self._dense_bucket(g, D)
+                try:
+                    return gdense.dense_batch_graphs(
+                        [g], spec, self.device,
+                        atom_features=self.atom_features)
+                except gdense.AsymmetricEdgesError as exc:
+                    # a property of this structure: the next one may run
+                    # dense again.  Other ValueErrors are broken
+                    # invariants and propagate.
+                    self._warn_once(f"dense layout unavailable for this "
+                                    f"structure ({exc})")
+        return batch_graphs([g], self.bucket_for(g), self.device,
+                            atom_features=self.atom_features)
 
     # -- calculation --------------------------------------------------------
 
     def calculate(self, atoms: Atoms) -> Dict[str, Any]:
-        g = self.graph_for(atoms)
-        batch = batch_graphs([g], self.bucket_for(g), self.device,
-                             atom_features=self.atom_features)
+        batch = self.batch_for(self.graph_for(atoms))
         res = atomwise_forward(self.model, batch)
         out = res["out"].detach().cpu().numpy()
         grad = res["grad"].detach().cpu().numpy()

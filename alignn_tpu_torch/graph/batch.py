@@ -15,13 +15,14 @@ passing stage is a set of contiguous segments.  Their CSR pointers, and
 those of the argsorted src / lg_src, are built once here
 (:class:`~alignn_tpu_torch.ops.eggc.Segments`) and read by every layer.
 Gather windows of the JAX package are not ported: the Calculator
-batches without them.
+batches without them.  The dense-neighbourhood layout fills the same
+:class:`GraphBatch` (:mod:`alignn_tpu_torch.graph.dense`).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -33,13 +34,16 @@ from alignn_tpu_torch.ops.eggc import Segments
 
 @dataclass(frozen=True)
 class Incidence:
-    """Index arrays of one message-passing stage (g or its line graph)."""
+    """Index arrays of one message-passing stage (g or its line graph).
+
+    A dense batch leaves ``dst`` out: its dst side is the block owner.
+    """
 
     src: torch.Tensor           # [E] int64
     src_perm: torch.Tensor      # [E] int64, stable argsort(src)
     src_perm_inv: torch.Tensor  # [E] int64
     src_sorted: Segments        # segments of src[src_perm]
-    dst: Segments               # segments of the ascending dst
+    dst: Optional[Segments] = None  # segments of the ascending dst
 
 
 @dataclass
@@ -68,19 +72,26 @@ class GraphBatch:
     volume: torch.Tensor         # [G]
     n_nodes: torch.Tensor        # [G] real atom counts
     graph_mask: torch.Tensor     # [G]
-    # message-passing stages: g (atoms <- bonds), L(g) (bonds <- angles)
+    # message-passing stages: g (atoms <- bonds), L(g) (bonds <- angles);
+    # a dense batch has no lg_index (its L-stage is local pairs)
     g_index: Incidence
-    lg_index: Incidence
+    lg_index: Optional[Incidence]
+    # dense layout (graph/dense.py): in-degree block D (0 = sparse) and
+    # the reverse-edge involution [E] int64
+    dense_D: int = 0
+    rev: Optional[torch.Tensor] = None
 
 
 @dataclass(frozen=True)
 class BucketSpec:
-    """Static pad sizes (nodes, edges, lg-edges, graphs) for a batch."""
+    """Static pad sizes (nodes, edges, lg-edges, graphs) for a batch;
+    ``dense_D > 0`` marks a dense-neighbourhood bucket."""
 
     n_nodes: int
     n_edges: int
     n_lg_edges: int
     n_graphs: int
+    dense_D: int = 0
 
     @staticmethod
     def tight_for_batch(graphs: Sequence[GraphData], node_quantum: int = 128,
@@ -102,9 +113,10 @@ def _round_up(x: int, quantum: int) -> int:
     return ((x + quantum - 1) // quantum) * quantum
 
 
-def _incidence(src: np.ndarray, dst: np.ndarray, num_dst: int,
+def _incidence(src: np.ndarray, dst: Optional[np.ndarray], num_dst: int,
                num_src: int, device: torch.device) -> Incidence:
-    if np.any(np.diff(dst) < 0):
+    """The stage's index tensors; `dst` None leaves its segments out."""
+    if dst is not None and np.any(np.diff(dst) < 0):
         raise ValueError("dst must be ascending: the segment kernels "
                          "reduce contiguous row ranges")
     perm = np.argsort(src, kind="stable")
@@ -119,7 +131,7 @@ def _incidence(src: np.ndarray, dst: np.ndarray, num_dst: int,
     return Incidence(
         src=src_t, src_perm=perm_t, src_perm_inv=t(inv),
         src_sorted=Segments.from_sorted(src_t[perm_t], num_src),
-        dst=Segments.from_sorted(t(dst), num_dst))
+        dst=None if dst is None else Segments.from_sorted(t(dst), num_dst))
 
 
 def batch_graphs(graphs: List[GraphData], spec: BucketSpec,

@@ -1,12 +1,15 @@
 """Core modules: layer norm, MLP block, edge-gated graph convolution.
 
-Counterpart of ``alignn_tpu/nn/layers.py`` on the sparse layout.  Module
-and attribute names follow the flax parameter tree (``src_gate``,
-``norm_nodes``, ...), so :mod:`alignn_tpu_torch.nn.convert` maps a
-checkpoint mechanically.
+Counterpart of ``alignn_tpu/nn/layers.py`` on the sparse and the
+dense-neighbourhood layouts.  Module and attribute names follow the flax
+parameter tree (``src_gate``, ``norm_nodes``, ...), so
+:mod:`alignn_tpu_torch.nn.convert` maps a checkpoint mechanically, and
+one state dict drives both layouts.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -14,8 +17,10 @@ from torch.nn import functional as F
 
 from alignn_tpu_torch.graph.batch import Incidence
 from alignn_tpu_torch.ops.basis import rbf_expand, rbf_params
+from alignn_tpu_torch.ops.dense import (dense_gated_aggregate,
+                                        dense_pair_aggregate, fold_mask)
 from alignn_tpu_torch.ops.eggc import (gated_aggregate, gather_nodes,
-                                       sorted_gather)
+                                       permute_rows, sorted_gather)
 
 # flax's Dense: y = x @ kernel + bias with torch's default init, which is
 # exactly nn.Linear (the checkpoint converter transposes the kernel)
@@ -70,6 +75,15 @@ class MLPLayer(nn.Module):
         return F.silu(self.norm(self.linear(x)))
 
 
+class DenseWiring(NamedTuple):
+    """What the dense layers read of a dense batch (graph/dense.py)."""
+
+    D: int                  # in-degree block
+    edge_mask: torch.Tensor  # [N*D]
+    lg_mask: torch.Tensor    # [N*D*D]
+    rev: torch.Tensor        # [N*D] reverse-edge involution
+
+
 class EdgeGatedGraphConv(nn.Module):
     """Edge-gated graph convolution, sparse layout:
 
@@ -82,6 +96,9 @@ class EdgeGatedGraphConv(nn.Module):
     src-side gathers ride one concatenated gather whose transpose is a
     sorted segment sum (K2); the dst-side gather transposes into K2
     directly; the aggregation is K1.
+
+    With a :class:`DenseWiring` the node stage runs on the dense layout
+    (aggregation K3), and :meth:`pair_stage` is the dense L-stage (K4).
     """
 
     def __init__(self, features: int):
@@ -93,7 +110,10 @@ class EdgeGatedGraphConv(nn.Module):
         self.norm_nodes = MaskedLayerNorm(features)
         self.norm_edges = MaskedLayerNorm(features)
 
-    def forward(self, x: torch.Tensor, e: torch.Tensor, g: Incidence):
+    def forward(self, x: torch.Tensor, e: torch.Tensor, g: Incidence,
+                dense: Optional[DenseWiring] = None):
+        if dense is not None:
+            return self._dense_node_stage(x, e, g, dense)
         f = self.features
         cat_e = gather_nodes(
             torch.cat([self.src_gate(x), self.dst_update(x)], dim=-1),
@@ -106,6 +126,50 @@ class EdgeGatedGraphConv(nn.Module):
         e_new = e + F.silu(self.norm_edges(m))
         return x_new, e_new
 
+    def _dense_node_stage(self, x, e, g: Incidence, dense: DenseWiring):
+        """Node stage on the dense layout (JAX ``_dense_gather_aggregate``):
+        the ``[sg | bh]`` src gather transposes into K2, the dst side is a
+        block broadcast (transpose: a block sum), the slot mask folds into
+        the logits, and the aggregation is K3."""
+        f, D = self.features, dense.D
+        n = x.shape[0]
+        cat_e = gather_nodes(
+            torch.cat([self.src_gate(x), self.dst_update(x)], dim=-1),
+            g.src, g.src_perm, g.src_perm_inv, g.src_sorted)
+        sg_e, bh_e = cat_e[:, :f], cat_e[:, f:]
+        dg = self.dst_gate(x)
+        m = (sg_e.reshape(n, D, f) + dg[:, None, :]).reshape(-1, f) \
+            + self.edge_gate(e)
+        h = dense_gated_aggregate(fold_mask(m, dense.edge_mask), bh_e, D)
+        x_new = x + F.silu(self.norm_nodes(self.src_update(x) + h))
+        e_new = e + F.silu(self.norm_edges(m))
+        return x_new, e_new
+
+    def pair_stage(self, x: torch.Tensor, e: torch.Tensor,
+                   dense: DenseWiring):
+        """L-stage on the dense layout (JAX ``_dense_pair_lstage``).
+
+        The L(g) nodes are g's edges (x: [N*D, F] in D-blocks by dst);
+        the L-edges are the local pairs (e: [N*D*D, F], rows (j, t, s)).
+        m2 = sg[j,s] + dg[rev[j*D+t]] + edge_gate(e), masked by lg_mask,
+        aggregated over s by K4 into rows (j, t), which rev maps back to
+        the edge rev[j*D+t].  As in JAX the edge tail normalises the
+        mask-folded m2 (only masked pair rows see the shift).
+        """
+        f, D = self.features, dense.D
+        n = x.shape[0] // D
+        sg = self.src_gate(x)
+        dg_r = permute_rows(self.dst_gate(x), dense.rev, dense.rev)
+        bh = self.dst_update(x)
+        m2 = (sg.reshape(n, 1, D, f) + dg_r.reshape(n, D, 1, f)).reshape(
+            -1, f) + self.edge_gate(e)
+        m2 = fold_mask(m2, dense.lg_mask)
+        h = permute_rows(dense_pair_aggregate(m2, bh, D), dense.rev,
+                         dense.rev)
+        x_new = x + F.silu(self.norm_nodes(self.src_update(x) + h))
+        e_new = e + F.silu(self.norm_edges(m2))
+        return x_new, e_new
+
 
 class ALIGNNConv(nn.Module):
     """One ALIGNN layer: EGGC on g, then EGGC on L(g)."""
@@ -115,7 +179,14 @@ class ALIGNNConv(nn.Module):
         self.node_update = EdgeGatedGraphConv(features)
         self.edge_update = EdgeGatedGraphConv(features)
 
-    def forward(self, x, y, z, g: Incidence, lg: Incidence):
+    def forward(self, x, y, z, g: Incidence, lg: Optional[Incidence],
+                dense: Optional[DenseWiring] = None):
+        if dense is not None:
+            # the dense L-stage is local pairs wired by rev: it reads no
+            # line-graph index arrays
+            x, m = self.node_update(x, y, g, dense)
+            y, z = self.edge_update.pair_stage(m, z, dense)
+            return x, y, z
         x, m = self.node_update(x, y, g)
         y, z = self.edge_update(m, z, lg)
         return x, y, z

@@ -1,7 +1,8 @@
 """ALIGNN-FF model (atomwise, LayerNorm flavour) and its E/F/S forward.
 
 Counterpart of ``alignn_tpu/nn/models.py`` for ``ALIGNNAtomWise`` on the
-sparse layout.  Angle cosines are recomputed from the bond vectors `r`
+sparse and the dense-neighbourhood layouts (a batch with ``dense_D > 0``,
+graph/dense.py).  Angle cosines are recomputed from the bond vectors `r`
 inside the forward, so the gradient of the energy with respect to `r`
 carries the 3-body terms; forces and the virial stress come from that
 gradient (:func:`atomwise_forward`).
@@ -16,10 +17,12 @@ import torch
 from torch import nn
 
 from alignn_tpu_torch.graph.batch import GraphBatch
-from alignn_tpu_torch.nn.layers import (ALIGNNConv, Dense, EdgeGatedGraphConv,
-                                        MLPLayer, RBFExpansion)
-from alignn_tpu_torch.ops.basis import (bond_cosines,
+from alignn_tpu_torch.nn.layers import (ALIGNNConv, Dense, DenseWiring,
+                                        EdgeGatedGraphConv, MLPLayer,
+                                        RBFExpansion)
+from alignn_tpu_torch.ops.basis import (bond_cosines, bond_cosines_dense,
                                         cutoff_function_based_edges)
+from alignn_tpu_torch.ops.eggc import permute_rows
 from alignn_tpu_torch.ops.segment import graph_readout_mean, segment_sum
 
 EV_A3_TO_GPA = 160.21766208  # 1 eV/Angstrom^3 in GPa
@@ -128,11 +131,14 @@ class _Trunk(nn.Module):
                     EdgeGatedGraphConv(cfg.hidden_features))
 
     def forward(self, batch: GraphBatch, x, y, z):
+        dense = DenseWiring(batch.dense_D, batch.edge_mask, batch.lg_mask,
+                            batch.rev) if batch.dense_D else None
         for i in range(self.alignn_layers):
             x, y, z = getattr(self, f"alignn_layers_{i}")(
-                x, y, z, batch.g_index, batch.lg_index)
+                x, y, z, batch.g_index, batch.lg_index, dense)
         for i in range(self.gcn_layers):
-            x, y = getattr(self, f"gcn_layers_{i}")(x, y, batch.g_index)
+            x, y = getattr(self, f"gcn_layers_{i}")(x, y, batch.g_index,
+                                                     dense)
         return x, y
 
 
@@ -167,7 +173,8 @@ class ALIGNNAtomWise(nn.Module):
     def forward(self, batch: GraphBatch, r: torch.Tensor):
         cfg = self.cfg
         bondlength = torch.linalg.norm(r, dim=1)
-        cosines = bond_cosines(r, batch.lg_src, batch.lg_dst)
+        cosines = bond_cosines_dense(r, batch.dense_D) if batch.dense_D \
+            else bond_cosines(r, batch.lg_src, batch.lg_dst)
         edge_scale = None
         rbf_input = bondlength
         if cfg.use_cutoff_function:
@@ -267,9 +274,18 @@ def atomwise_forward(model: ALIGNNAtomWise, batch: GraphBatch,
         pair_forces = pair_forces * batch.n_nodes.sum()
 
     num_nodes = batch.z.shape[0]
-    forces = segment_sum(pair_forces, batch.dst, num_nodes)
-    if cfg.add_reverse_forces:
-        forces = forces - segment_sum(pair_forces, batch.src, num_nodes)
+    if batch.dense_D:
+        # dense layout: the in-edges of node i are block i, its out-edges
+        # the rev of block i, so both sums are block sums
+        D = batch.dense_D
+        forces = pair_forces.reshape(num_nodes, D, 3).sum(dim=1)
+        if cfg.add_reverse_forces:
+            pf_rev = permute_rows(pair_forces, batch.rev, batch.rev)
+            forces = forces - pf_rev.reshape(num_nodes, D, 3).sum(dim=1)
+    else:
+        forces = segment_sum(pair_forces, batch.dst, num_nodes)
+        if cfg.add_reverse_forces:
+            forces = forces - segment_sum(pair_forces, batch.src, num_nodes)
     res["grad"] = forces
 
     if cfg.stresswise_weight != 0:

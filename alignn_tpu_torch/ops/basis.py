@@ -56,6 +56,29 @@ def bond_cosines(r: torch.Tensor, lg_src: torch.Tensor,
     r2 = r[lg_dst]
     num = torch.sum(r1 * r2, dim=1)
     den = torch.linalg.norm(r1, dim=1) * torch.linalg.norm(r2, dim=1)
-    cos = num / den
+    return _clip_cos(num / den)
+
+
+def bond_cosines_dense(r: torch.Tensor, D: int) -> torch.Tensor:
+    """cos(theta) of every local pair of the dense layout (graph/dense.py).
+
+    The L-edge at pair (j, t, s) joins a = j*D+s and b = rev[j*D+t] with
+    r_b == -r[j*D+t], so -r_a . r_b / (|r_a||r_b|) becomes the node-local
+    r_s . r_t / (|r_s||r_t|): no gather.  Flat [N*D*D] in (j, t, s) order,
+    s fastest.  The diagonal s = t (a bond and its own reverse) sits at
+    cos = 1, on the clip bound.  Trash slots have r = (1, 0, 0), so no
+    norm is zero.
+    """
+    n = r.shape[0] // D
+    rb = r.reshape(n, D, 3)
+    dots = torch.einsum("jtd,jsd->jts", rb, rb)
+    norms = torch.linalg.norm(rb, dim=-1)
+    den = norms[:, :, None] * norms[:, None, :]
+    return _clip_cos(dots / den).reshape(-1)
+
+
+def _clip_cos(cos: torch.Tensor) -> torch.Tensor:
+    """clip to [-1, 1] as maximum/minimum, whose gradient at the bound is
+    0.5 as ``jnp.clip`` gives (``torch.clamp`` passes 1.0)."""
     return torch.minimum(torch.maximum(cos, cos.new_tensor(-1.0)),
                          cos.new_tensor(1.0))

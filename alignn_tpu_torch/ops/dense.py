@@ -1,0 +1,307 @@
+"""Gated aggregations of the dense-neighbourhood layout, with gradients.
+
+Counterpart of ``alignn_tpu/ops/pallas_dense.py``.  In the dense layout
+(:mod:`alignn_tpu_torch.graph.dense`) node j owns the edge rows
+``[j*D, (j+1)*D)`` and the local pairs ``(j, t, s)`` at rows
+``j*D*D + t*D + s``, so both aggregations are regular block reductions.
+The slot mask is folded into the gate logits (:func:`fold_mask`):
+sigmoid(m - 1e9) is exactly 0, which removes a masked slot from the
+numerator, the denominator and every gradient.
+
+- K3 ``dense_gated_aggregate``: h[j] = sum_s sig(m[jD+s]) bh[jD+s] /
+  (sum_s sig + 1e-6), [M*D, F] -> [M, F].  Replaces the Pallas ``_kernel``
+  (``pallas_dense.py:72``, launched at ``:84``).  Its backward is the JAX
+  ``_bwd`` (``:131-151``) in plain torch ops: den recomputed in f32, then
+  elementwise and broadcast algebra that stays differentiable.
+- K4 ``dense_pair_aggregate``: h[j,t] = sum_s sig(m2[j,t,s]) bh[j,s] /
+  (sum_s sig + 1e-6), m2 [N*D*D, F], bh [N*D, F] -> [N*D, F].  Replaces
+  ``_pair_kernel`` (``:266``, launched at ``:291``).  Its backward is
+  :func:`pair_aggregate_bwd`.
+- K5a ``pair_aggregate_bwd``: (dm2, dbh), the first-order VJP of K4.
+  Replaces ``_pair_bwd_kernel`` (``:395``, launched at ``:433``) and the
+  dbh reduction that JAX leaves to XLA (``:453-457``).  JAX makes the
+  kernel opt-in (``ALIGNN_TPU_PAIR_BWD_KERNEL``) because XLA fuses its
+  plain rule into the matmul VJPs; PyTorch fuses nothing, so here the
+  kernel is the default.  Its own derivative (``_xla_pair_bwd2``, K5b)
+  belongs to the dense training slice and raises until then.
+
+All three kernels are in ``csrc/dense.cu``.  Bound on an H100 SXM at the
+512-atom dense shape (N 768, D 18, F 256, f32), all by bytes at
+3.35 TB/s: K3 29 MB (0.009 ms), K4 283 MB (0.085 ms), K5a 552 MB
+(0.165 ms).
+
+Dispatch rule of every wrapper (as in :mod:`alignn_tpu_torch.ops.eggc`):
+a tensor on the CPU takes the plain PyTorch version (``*_plain``); a
+CUDA tensor launches the kernel or raises.  The kernel wrappers count
+their launches in ``.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from alignn_tpu_torch import _build
+from alignn_tpu_torch.ops.eggc import (_DTYPE_CODE, _dispatch, _raise_on,
+                                       _unit_stride)
+
+EPS = 1e-6
+MASK_SHIFT = 1e9   # additive logit shift of a masked slot
+
+
+def fold_mask(m: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """m + (mask - 1) * 1e9 per row: sigmoid then gives exactly 0 (with a
+    zero gradient) on the rows whose {0, 1} mask is 0.  The shift is cast
+    to m's dtype first, as the JAX ``fold_mask`` does."""
+    return m + ((mask - 1.0) * MASK_SHIFT).to(m.dtype)[:, None]
+
+
+# ---------------------------------------------------------------------------
+# plain versions (CPU path, and the reference the kernels are held against)
+# ---------------------------------------------------------------------------
+
+
+def dense_gated_aggregate_plain(m: torch.Tensor, bh: torch.Tensor,
+                                D: int) -> torch.Tensor:
+    """Block sums over D rows in f32 (JAX ``_xla_dense_aggregate``)."""
+    f = m.shape[-1]
+    sig = torch.sigmoid(m.float())
+    num = (sig * bh.float()).reshape(-1, D, f).sum(dim=1)
+    den = sig.reshape(-1, D, f).sum(dim=1)
+    return (num / (den + EPS)).to(bh.dtype)
+
+
+def dense_pair_aggregate_plain(m2: torch.Tensor, bh: torch.Tensor,
+                               D: int) -> torch.Tensor:
+    """Sums over s in f32 (JAX ``_xla_pair_aggregate``)."""
+    f = m2.shape[-1]
+    n = bh.shape[0] // D
+    sig = torch.sigmoid(m2.float()).reshape(n, D, D, f)
+    bh4 = bh.float().reshape(n, 1, D, f)
+    num = (sig * bh4).sum(dim=2)
+    den = sig.sum(dim=2)
+    return (num / (den + EPS)).reshape(n * D, f).to(bh.dtype)
+
+
+def pair_aggregate_bwd_plain(m2: torch.Tensor, bh: torch.Tensor,
+                             g: torch.Tensor, D: int):
+    """(dm2, dbh) of K4 at (m2, bh) with cotangent g (JAX
+    ``_xla_pair_bwd``): den and h recomputed in f32."""
+    f = m2.shape[-1]
+    n = bh.shape[0] // D
+    sig = torch.sigmoid(m2.float()).reshape(n, D, D, f)
+    bh4 = bh.float().reshape(n, 1, D, f)
+    den = sig.sum(dim=2) + EPS                       # [n, t, F]
+    h = (sig * bh4).sum(dim=2) / den
+    g32 = g.float().reshape(n, D, f)
+    ginv = (g32 / den)[:, :, None, :]                # [n, t, 1, F]
+    gh = (-g32 * h / den)[:, :, None, :]
+    dm2 = (sig * (1.0 - sig) * (bh4 * ginv + gh)).reshape(-1, f)
+    dbh = (sig * ginv).sum(dim=1).reshape(-1, f)
+    return dm2.to(m2.dtype), dbh.to(bh.dtype)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.library("dense")
+    if not getattr(lib, "_alignn_configured", False):
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        for fn in (lib.alignn_dense_gated_aggregate,
+                   lib.alignn_dense_pair_aggregate):
+            fn.argtypes = [p, ll, p, ll, p, i, i, i, i, p]
+            fn.restype = i
+        lib.alignn_pair_aggregate_bwd.argtypes = [p, ll, p, ll, p, ll, p, p,
+                                                  i, i, i, i, p]
+        lib.alignn_pair_aggregate_bwd.restype = i
+        lib._alignn_configured = True
+    return lib
+
+
+def _check(name: str, x: torch.Tensor, rows: int, like: torch.Tensor):
+    """x must be a CUDA [rows, F] table of like's F, dtype and device with
+    a unit-stride feature axis (any row stride)."""
+    if not x.is_cuda:
+        raise ValueError(f"{name}: the kernel takes CUDA tensors, got "
+                         f"{x.device}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: dtype {x.dtype} not supported by the "
+                        f"kernel (float32, bfloat16)")
+    if (x.dim() != 2 or x.stride(1) != 1 or x.shape[0] != rows
+            or x.shape[1] != like.shape[-1] or x.dtype != like.dtype
+            or x.device != like.device):
+        raise ValueError(f"{name}: expects a [{rows}, {like.shape[-1]}] "
+                         f"{like.dtype} table on {like.device} with a "
+                         f"unit-stride feature axis, got shape "
+                         f"{tuple(x.shape)} {x.dtype} strides {x.stride()}")
+
+
+def _blocks(name: str, x: torch.Tensor, D: int) -> int:
+    """The number of D-row blocks of x's rows."""
+    if D <= 0 or x.dim() != 2 or x.shape[0] % D:
+        raise ValueError(f"{name}: rows of {tuple(x.shape)} must be a "
+                         f"multiple of D = {D}")
+    return x.shape[0] // D
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def dense_gated_aggregate_cuda(m: torch.Tensor, bh: torch.Tensor,
+                               D: int) -> torch.Tensor:
+    """K3 on the card: [M*D, F] -> [M, F] in m's dtype, f32 sums."""
+    n = _blocks("dense_gated_aggregate", m, D)
+    _check("dense_gated_aggregate", m, n * D, m)
+    _check("dense_gated_aggregate", bh, n * D, m)
+    f = m.shape[1]
+    out = torch.empty((n, f), dtype=m.dtype, device=m.device)
+    if out.numel():
+        with torch.cuda.device(m.device):
+            rc = _lib().alignn_dense_gated_aggregate(
+                m.data_ptr(), m.stride(0), bh.data_ptr(), bh.stride(0),
+                out.data_ptr(), n, D, f, _DTYPE_CODE[m.dtype], _stream(m))
+        _raise_on(rc, "dense_gated_aggregate")
+        dense_gated_aggregate_cuda.launches += 1
+    return out
+
+
+dense_gated_aggregate_cuda.launches = 0
+
+
+def dense_pair_aggregate_cuda(m2: torch.Tensor, bh: torch.Tensor,
+                              D: int) -> torch.Tensor:
+    """K4 on the card: m2 [N*D*D, F], bh [N*D, F] -> [N*D, F]."""
+    n = _blocks("dense_pair_aggregate", bh, D)
+    _check("dense_pair_aggregate", m2, n * D * D, bh)
+    _check("dense_pair_aggregate", bh, n * D, bh)
+    f = bh.shape[1]
+    out = torch.empty((n * D, f), dtype=bh.dtype, device=bh.device)
+    if out.numel():
+        with torch.cuda.device(bh.device):
+            rc = _lib().alignn_dense_pair_aggregate(
+                m2.data_ptr(), m2.stride(0), bh.data_ptr(), bh.stride(0),
+                out.data_ptr(), n, D, f, _DTYPE_CODE[bh.dtype], _stream(bh))
+        _raise_on(rc, "dense_pair_aggregate")
+        dense_pair_aggregate_cuda.launches += 1
+    return out
+
+
+dense_pair_aggregate_cuda.launches = 0
+
+
+def pair_aggregate_bwd_cuda(m2: torch.Tensor, bh: torch.Tensor,
+                            g: torch.Tensor, D: int):
+    """K5a on the card: (dm2 [N*D*D, F], dbh [N*D, F]) in the input dtype."""
+    n = _blocks("pair_aggregate_bwd", bh, D)
+    _check("pair_aggregate_bwd", m2, n * D * D, bh)
+    _check("pair_aggregate_bwd", bh, n * D, bh)
+    _check("pair_aggregate_bwd", g, n * D, bh)
+    f = bh.shape[1]
+    dm2 = torch.empty((n * D * D, f), dtype=bh.dtype, device=bh.device)
+    dbh = torch.empty((n * D, f), dtype=bh.dtype, device=bh.device)
+    if dbh.numel():
+        with torch.cuda.device(bh.device):
+            rc = _lib().alignn_pair_aggregate_bwd(
+                m2.data_ptr(), m2.stride(0), bh.data_ptr(), bh.stride(0),
+                g.data_ptr(), g.stride(0), dm2.data_ptr(), dbh.data_ptr(), n,
+                D, f, _DTYPE_CODE[bh.dtype], _stream(bh))
+        _raise_on(rc, "pair_aggregate_bwd")
+        pair_aggregate_bwd_cuda.launches += 1
+    return dm2, dbh
+
+
+pair_aggregate_bwd_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# differentiable entry points
+# ---------------------------------------------------------------------------
+
+
+class _DenseGatedAggregate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, m, bh, D):
+        m, bh = _unit_stride(m), _unit_stride(bh)
+        h = _dispatch(m, dense_gated_aggregate_plain,
+                      dense_gated_aggregate_cuda, m, bh, D)
+        ctx.D = D
+        ctx.save_for_backward(m, bh, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        m, bh, h = ctx.saved_tensors
+        D, f = ctx.D, m.shape[-1]
+        sig = torch.sigmoid(m.float()).reshape(-1, D, f)
+        den = (sig.sum(dim=1) + EPS)[:, None, :]       # [M, 1, F]
+        g32 = g.float()[:, None, :]
+        ginv = g32 / den
+        gh = -g32 * h.float()[:, None, :] / den        # dL/dden
+        bh3 = bh.float().reshape(-1, D, f)
+        dbh = (sig * ginv).reshape(-1, f).to(bh.dtype)
+        dm = (sig * (1.0 - sig) * (bh3 * ginv + gh)).reshape(-1, f)
+        return dm.to(m.dtype), dbh, None
+
+
+def dense_gated_aggregate(m: torch.Tensor, bh: torch.Tensor,
+                          D: int) -> torch.Tensor:
+    """Blockwise normalised sigmoid(m) * bh (K3); mask pre-folded.
+
+    m, bh: [M*D, F] in D-row blocks; returns [M, F].
+    """
+    return _DenseGatedAggregate.apply(m, bh, D)
+
+
+class _DensePairAggregate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, m2, bh, D):
+        m2, bh = _unit_stride(m2), _unit_stride(bh)
+        h = _dispatch(bh, dense_pair_aggregate_plain,
+                      dense_pair_aggregate_cuda, m2, bh, D)
+        ctx.D = D
+        ctx.save_for_backward(m2, bh)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        m2, bh = ctx.saved_tensors
+        dm2, dbh = pair_aggregate_bwd(m2, bh, g, ctx.D)
+        return dm2, dbh, None
+
+
+def dense_pair_aggregate(m2: torch.Tensor, bh: torch.Tensor,
+                         D: int) -> torch.Tensor:
+    """h[j,t] = sum_s sig(m2[j,t,s]) bh[j,s] / (sum_s sig + 1e-6) (K4).
+
+    m2: [N*D*D, F] rows (j, t, s), s fastest, mask pre-folded; bh:
+    [N*D, F] rows (j, s).  Returns [N*D, F] rows (j, t); the caller maps
+    row (j, t) to the edge rev[j*D+t].
+    """
+    return _DensePairAggregate.apply(m2, bh, D)
+
+
+class _PairAggregateBwd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, m2, bh, g, D):
+        m2, bh, g = _unit_stride(m2), _unit_stride(bh), _unit_stride(g)
+        return _dispatch(bh, pair_aggregate_bwd_plain,
+                         pair_aggregate_bwd_cuda, m2, bh, g, D)
+
+    @staticmethod
+    def backward(ctx, u, v):
+        raise NotImplementedError(
+            "the second derivative of the dense pair aggregation (K5b, "
+            "JAX _xla_pair_bwd2) is not ported yet: it comes with the "
+            "dense E/F/S training slice")
+
+
+def pair_aggregate_bwd(m2: torch.Tensor, bh: torch.Tensor, g: torch.Tensor,
+                       D: int):
+    """(dm2, dbh) = VJP of :func:`dense_pair_aggregate` at (m2, bh) with
+    cotangent g (K5a).  Differentiating it again raises."""
+    return _PairAggregateBwd.apply(m2, bh, g, D)

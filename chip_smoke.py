@@ -6,14 +6,24 @@
 Phases:
 1. set-up: the card's name and power limit, TF32 off, the CUDA kernels
    built from ``alignn_tpu_torch/csrc`` (build seconds printed);
-2. every kernel of the serving path (K1 gated aggregation, K2 sorted
-   segment sum) against its plain PyTorch version on the card, at the
-   L-stage shape of the 512-atom cell below, in f32 and bf16, with
-   times (CUDA events, median of 20 after warm-up) and the bound;
-3. the slice: ``Calculator(path="docs/mlearn_r4/Si")`` on the default
-   device on 8-, 64- and 512-atom Si (diamond, rattled supercells); E,
-   forces, stress, ms per call and kernel launches per call; the 8- and
-   64-atom results against the port on the CPU.
+2. every kernel of the serving paths against its plain PyTorch version on
+   the card, in f32 and bf16, with device times (CUDA events, median of 20
+   after warm-up, queued behind a spin kernel) and the bound: K1 gated aggregation and K2 sorted segment sum
+   at the sparse L-stage shape of the 512-atom cell below; K3 dense gated
+   aggregation, K4 local-pair aggregation and K5a its backward at the
+   dense shapes of the same cell (edge rows [N*D, 256], pair rows
+   [N*D*D, 256]);
+3. the sparse slice: ``Calculator(path="docs/mlearn_r4/Si")`` on the
+   default device on 8-, 64- and 512-atom Si (diamond, rattled
+   supercells); E, forces, stress, ms per call and kernel launches per
+   call; the 8- and 64-atom results against the port on the CPU;
+4. the dense slice: the same weights with ``use_canonize: true`` and
+   ``dense=True`` on the same three cells, which must run the dense layout
+   (K3, K4, K5a launched, K1 not); checked against a sparse Calculator of
+   the same config on the card and, at 8 and 64 atoms, the port on the
+   CPU;
+5. ``dense_rocksalt_b64``: the 64 rocksalt cells of ``bench.py`` as one
+   dense batch and one sparse batch through ``atomwise_forward``.
 
 Prints JSON lines; the last line is ``{"ok": true, "device": {...}}``.
 Exits non-zero, without that line, on any failed check, and when no CUDA
@@ -34,9 +44,12 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 MODEL_DIR = os.path.join(REPO, "docs", "mlearn_r4", "Si")
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12    # f32 outside the tensor cores
+SPIN_CYCLES_PER_S = 2e9        # a little above the H100's 1.98 GHz boost
 DIAMOND = np.array([[0, 0, 0], [0.25, 0.25, 0.25], [0, 0.5, 0.5],
                     [0.25, 0.75, 0.75], [0.5, 0, 0.5], [0.75, 0.25, 0.75],
                     [0.5, 0.5, 0], [0.75, 0.75, 0.25]])
+ROCKSALT = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5],
+                     [0.5, 0, 0], [0, 0.5, 0], [0, 0, 0.5], [0.5, 0.5, 0.5]])
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}   # x max|plain|
 CPU_TOL = {"energy_per_atom": 1e-4, "forces": 5e-4, "stress": 1e-5}
 
@@ -53,19 +66,29 @@ def smi_line() -> str:
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of fn() over `reps` runs (CUDA events)."""
+    """Median device time of fn() over `reps` runs (CUDA events).
+
+    The timed runs queue up behind a spin kernel that outlasts the host's
+    time to enqueue them, so each event pair brackets device work only,
+    not the Python wrapper's launch overhead (which exceeds the run time
+    of the smaller kernels).
+    """
     import torch
 
     for _ in range(warmup):
         fn()
-    events = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(int((2 * reps * host_s + 1e-3) * SPIN_CYCLES_PER_S))
+    for start, end in events:
         start.record()
         fn()
         end.record()
-        events.append((start, end))
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in events]))
 
@@ -186,6 +209,72 @@ def kernel_phase(seg, failures: list):
     return results
 
 
+def dense_kernel_phase(batch, failures: list):
+    """K3/K4/K5a against their plain versions at the dense shapes of
+    `batch`, with its real slot masks folded into random logits."""
+    import torch
+
+    from alignn_tpu_torch.ops import dense as dk
+
+    dev, D = batch.r.device, batch.dense_D
+    n, f = batch.z.shape[0], 256
+    rows, pairs = n * D, n * D * D
+    gen = torch.Generator(device=dev).manual_seed(1)
+    results = {}
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    m32 = dk.fold_mask(randn(rows, f), batch.edge_mask)
+    bh32 = randn(rows, f)
+    m2_32 = dk.fold_mask(randn(pairs, f), batch.lg_mask)
+    g32 = randn(rows, f)
+    for key, fn in (("K3", "dense_gated_aggregate"),
+                    ("K4", "dense_pair_aggregate"),
+                    ("K5a", "pair_aggregate_bwd")):
+        kern, plain = getattr(dk, fn + "_cuda"), getattr(dk, fn + "_plain")
+        out = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            es = torch.tensor([], dtype=dtype).element_size()
+            bh, g = bh32.to(dtype), g32.to(dtype)
+            if key == "K3":
+                args = (m32.to(dtype), bh, D)
+                # read m, bh; write h.  sigmoid 4, gated sum 2, gate sum 1
+                # per element; add and divide per output
+                nbytes, ops = (2 * rows + n) * f * es, 7.0 * rows * f + \
+                    2.0 * n * f
+            elif key == "K4":
+                args = (m2_32.to(dtype), bh, D)
+                nbytes, ops = (pairs + 2 * rows) * f * es, 7.0 * pairs * f + \
+                    2.0 * rows * f
+            else:
+                args = (m2_32.to(dtype), bh, g, D)
+                # read m2, bh, g; write dm2, dbh.  per pair element:
+                # sigmoid 4, sums 3, dm2 6, dbh 2; per row: ginv, gh 5
+                nbytes = (2 * pairs + 3 * rows) * f * es
+                ops = 15.0 * pairs * f + 5.0 * rows * f
+            got, ref = kern(*args), plain(*args)
+            torch.cuda.synchronize()
+            if key == "K5a":
+                errs = [compare(got[i], ref[i], name, failures,
+                                f"K5a pair_aggregate_bwd {part}")
+                        for i, part in enumerate(("dm2", "dbh"))]
+                err = max(errs, key=lambda e: e["rel_err"])
+                err = {**err, "dm2": errs[0], "dbh": errs[1]}
+            else:
+                err = compare(got, ref, name, failures, f"{key} {fn}")
+            del got, ref
+            b_ms, b_by = bound(nbytes, ops)
+            out[name] = {**err, "ms": cuda_ms(lambda: kern(*args)),
+                         "plain_ms": cuda_ms(lambda: plain(*args)),
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "library_ms": None}
+            del args
+        results[key] = out
+    return results
+
+
 def breakdown(calc, atoms):
     """(graph, stage ms, top kernels' ms) of ``calc.calculate(atoms)``.
 
@@ -198,7 +287,6 @@ def breakdown(calc, atoms):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from alignn_tpu_torch.graph.batch import batch_graphs
     from alignn_tpu_torch.nn.models import atomwise_forward
 
     clock = [time.perf_counter()]
@@ -210,8 +298,7 @@ def breakdown(calc, atoms):
 
     g = calc.graph_for(atoms)
     stages = {"graph": lap()}
-    batch = batch_graphs([g], calc.bucket_for(g), calc.device,
-                         atom_features=calc.atom_features)
+    batch = calc.batch_for(g)
     stages["batch"] = lap()
     res = atomwise_forward(calc.model, batch)
     res["grad"].cpu()
@@ -233,22 +320,40 @@ def breakdown(calc, atoms):
     return g, stages, {name[:90]: ms for name, ms in top}
 
 
-def slice_phase(new_calc, cpu_calc, failures: list):
-    """The Calculator on 8/64/512 atoms, a fresh one (own bucket) per cell;
-    returns (rows, total launches)."""
-    import torch
-
+def launch_counters() -> dict:
+    """{kernel id: its wrapper}; each wrapper counts its own launches."""
+    from alignn_tpu_torch.ops import dense as dk
     from alignn_tpu_torch.ops import eggc as ek
 
-    cells = [("diamond8", diamond()), ("si64_rattled", rattled_supercell(2)),
-             ("si512_rattled", rattled_supercell(4))]
+    return {"K1": ek.gated_aggregate_cuda, "K2": ek.sorted_segment_sum_cuda,
+            "K3": dk.dense_gated_aggregate_cuda,
+            "K4": dk.dense_pair_aggregate_cuda,
+            "K5a": dk.pair_aggregate_bwd_cuda}
+
+
+def reset_launches():
+    for fn in launch_counters().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {k: fn.launches for k, fn in launch_counters().items()}
+
+
+def si_cells():
+    return [("diamond8", diamond()), ("si64_rattled", rattled_supercell(2)),
+            ("si512_rattled", rattled_supercell(4))]
+
+
+def run_cells(new_calc, cells, dense: bool, failures: list):
+    """Drive a fresh Calculator per cell: 2 warm-up and 5 timed calls,
+    then the stage breakdown.  Returns [(row, atoms, result)]."""
+    import torch
+
     rows = []
-    ek.gated_aggregate_cuda.launches = 0
-    ek.sorted_segment_sum_cuda.launches = 0
     for name, atoms in cells:
         calc = new_calc()
-        k0 = (ek.gated_aggregate_cuda.launches,
-              ek.sorted_segment_sum_cuda.launches)
+        k0 = read_launches()
         for _ in range(2):
             res = calc.calculate(atoms)
         times = []
@@ -258,16 +363,17 @@ def slice_phase(new_calc, cpu_calc, failures: list):
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t) * 1e3)
         calls = 7
-        k1_per = (ek.gated_aggregate_cuda.launches - k0[0]) / calls
-        k2_per = (ek.sorted_segment_sum_cuda.launches - k0[1]) / calls
+        k1 = read_launches()
+        per_call = {k: (k1[k] - k0[k]) / calls for k in k1}
         g, stages, top_kernels = breakdown(calc, atoms)
         median_ms = float(np.median(times))
         n = atoms.num_atoms
         forces = res["forces"]
         row = {
-            "cell": name, "atoms": n, "edges": g.num_edges,
+            "cell": name, "layout": "dense" if dense else "sparse",
+            "atoms": n, "edges": g.num_edges,
             "lg_edges": g.num_lg_edges,
-            "bucket": list(vars(calc.bucket_for(g)).values()),
+            "bucket": list(vars(calc._spec).values()),
             "energy": res["energy"], "energy_per_atom": res["energy"] / n,
             "max_abs_force": float(np.abs(forces).max()),
             "abs_sum_force": float(np.abs(forces.sum(axis=0)).max()),
@@ -278,8 +384,7 @@ def slice_phase(new_calc, cpu_calc, failures: list):
             # wall time: the profiler slows the host, not the card
             "device_busy_share": stages["device_busy"] / median_ms,
             "top_kernels_ms": top_kernels,
-            "k1_launches_per_call": k1_per,
-            "k2_launches_per_call": k2_per,
+            "launches_per_call": per_call,
         }
         finite = np.isfinite(forces).all() and np.isfinite(
             res["stress"]).all() and np.isfinite(res["energy"])
@@ -287,26 +392,128 @@ def slice_phase(new_calc, cpu_calc, failures: list):
             failures.append(f"{name}: non-finite or misshaped output")
         if row["abs_sum_force"] > 1e-3:
             failures.append(f"{name}: |sum F| = {row['abs_sum_force']}")
-        if k1_per <= 0 or k2_per <= 0:
-            failures.append(f"{name}: a kernel was not launched "
-                            f"(K1 {k1_per}, K2 {k2_per} per call)")
+        if dense:
+            if calc._spec is None or calc._spec.dense_D == 0:
+                failures.append(f"{name}: the dense Calculator ran sparse")
+            need, banned = ("K3", "K4", "K5a"), ("K1",)
+        else:
+            need, banned = ("K1", "K2"), ()
+        if any(per_call[k] <= 0 for k in need) or \
+                any(per_call[k] != 0 for k in banned):
+            failures.append(f"{name}: launches per call {per_call} (need "
+                            f"{need}, none of {banned})")
         rows.append((row, atoms, res))
-    launches = {"K1": ek.gated_aggregate_cuda.launches,
-                "K2": ek.sorted_segment_sum_cuda.launches}
+    return rows
 
-    for row, atoms, res in rows[:2]:
-        ref = cpu_calc.calculate(atoms)
+
+def check_against(rows, ref_calc, label: str, failures: list):
+    """E/F/S of each row's result against ``ref_calc`` within CPU_TOL."""
+    for row, atoms, res in rows:
+        ref = ref_calc().calculate(atoms)
         n = atoms.num_atoms
         diff = {
             "energy_per_atom": abs(res["energy"] - ref["energy"]) / n,
             "forces": float(np.abs(res["forces"] - ref["forces"]).max()),
             "stress": float(np.abs(res["stress"] - ref["stress"]).max())}
-        row["vs_cpu_port"] = diff
+        row[f"vs_{label}"] = diff
         for key, tol in CPU_TOL.items():
             if not diff[key] <= tol:
                 failures.append(f"{row['cell']}: {key} differs from the "
-                                f"CPU port by {diff[key]} > {tol}")
-    return [r[0] for r in rows], launches
+                                f"{label} by {diff[key]} > {tol}")
+
+
+def rocksalt_b64():
+    """The 64 rocksalt cells of ``bench.py`` (seed 0, canonized 12-NN,
+    cutoff 8 A), built by the port; the label draws of ``bench.py`` are
+    made too, so that every cell is the same."""
+    from alignn_tpu_torch.chem.atoms import Atoms
+    from alignn_tpu_torch.graph.build import build_graph
+
+    rng = np.random.default_rng(0)
+    elems = ["Na", "Cl", "K", "Br", "Mg", "O", "Ca", "S"]
+    graphs = []
+    for _ in range(64):
+        a = 4.2 + 0.3 * rng.standard_normal()
+        frac = ROCKSALT + 0.02 * rng.standard_normal((8, 3))
+        graphs.append(build_graph(
+            Atoms(lattice_mat=np.eye(3) * a, frac_coords=frac,
+                  elements=[elems[j % len(elems)] for j in range(8)]),
+            cutoff=8.0, max_neighbors=12))
+        rng.standard_normal()          # energy label
+        rng.standard_normal((8, 3))    # force labels
+    return graphs
+
+
+def batch_phase(model, failures: list):
+    """dense_rocksalt_b64: one dense and one sparse batch of the same 64
+    graphs through ``atomwise_forward``; per-graph E and S, per-atom F."""
+    import torch
+
+    from alignn_tpu_torch.graph.batch import BucketSpec, batch_graphs
+    from alignn_tpu_torch.graph.dense import (dense_batch_graphs,
+                                              dense_spec_for_batch)
+    from alignn_tpu_torch.nn.models import EV_A3_TO_GPA, atomwise_forward
+
+    dev = next(model.parameters()).device
+    graphs = rocksalt_b64()
+    spec = dense_spec_for_batch(graphs)
+    dense = dense_batch_graphs(graphs, spec, dev)
+    sparse = batch_graphs(graphs, BucketSpec.tight_for_batch(graphs), dev)
+    ng, n = len(graphs), sum(g.num_nodes for g in graphs)
+    out = {}
+    for name, batch in (("dense", dense), ("sparse", sparse)):
+        if name == "dense":
+            reset_launches()
+        res = atomwise_forward(model, batch)
+        res = {k: res[k].detach().cpu().numpy()
+               for k in ("out", "grad", "stresses")}
+        torch.cuda.synchronize()
+        if name == "dense":
+            launches = read_launches()
+        t = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            atomwise_forward(model, batch)["grad"].cpu()
+            t.append((time.perf_counter() - t0) * 1e3)
+        out[name] = (res, float(np.median(t)))
+    (rd, dense_ms), (rs, sparse_ms) = out["dense"], out["sparse"]
+    diff = {
+        "energy_per_atom": float(np.abs(rd["out"][:ng, 0]
+                                        - rs["out"][:ng, 0]).max()),
+        "forces": float(np.abs(rd["grad"][:n] - rs["grad"][:n]).max()),
+        "stress": float(np.abs(rd["stresses"][:ng] - rs["stresses"][:ng])
+                        .max() / EV_A3_TO_GPA)}
+    row = {"cell": "dense_rocksalt_b64", "graphs": ng, "atoms": n,
+           "edges": sum(g.num_edges for g in graphs),
+           "lg_edges": sum(g.num_lg_edges for g in graphs),
+           "dense_bucket": list(vars(spec).values()),
+           "launches": launches, "dense_ms": dense_ms,
+           "sparse_ms": sparse_ms, "dense_vs_sparse": diff,
+           "max_abs_force": float(np.abs(rd["grad"][:n]).max())}
+    for key, tol in CPU_TOL.items():
+        if not diff[key] <= tol:
+            failures.append(f"dense_rocksalt_b64: {key} dense vs sparse "
+                            f"{diff[key]} > {tol}")
+    finite = all(np.isfinite(v).all() for v in rd.values())
+    if not finite or spec.dense_D == 0 or launches["K1"] != 0 or \
+            min(launches[k] for k in ("K3", "K4", "K5a")) <= 0:
+        failures.append(f"dense_rocksalt_b64: finite {finite}, D "
+                        f"{spec.dense_D}, launches {launches}")
+    return row
+
+
+KERNELS = (  # id, name, source, replaces
+    ("K1", "eggc_gated_aggregate", "alignn_tpu_torch/csrc/eggc.cu",
+     "alignn_tpu/ops/pallas_eggc.py:45"),
+    ("K2", "sorted_segment_sum", "alignn_tpu_torch/csrc/eggc.cu",
+     "alignn_tpu/ops/pallas_eggc.py:178"),
+    ("K3", "dense_gated_aggregate", "alignn_tpu_torch/csrc/dense.cu",
+     "alignn_tpu/ops/pallas_dense.py:72"),
+    ("K4", "dense_pair_aggregate", "alignn_tpu_torch/csrc/dense.cu",
+     "alignn_tpu/ops/pallas_dense.py:266"),
+    ("K5a", "pair_aggregate_bwd", "alignn_tpu_torch/csrc/dense.cu",
+     "alignn_tpu/ops/pallas_dense.py:395"),
+)
 
 
 def main() -> int:
@@ -333,9 +540,16 @@ def main() -> int:
     failures: list = []
 
     base = Calculator(path=MODEL_DIR)            # default device: cuda
+    canon = {**base.config, "use_canonize": True}
 
     def new_calc():
         return Calculator(model=base.model, config=base.config)
+
+    def new_dense_calc():
+        return Calculator(model=base.model, config=canon, dense=True)
+
+    def new_canon_sparse_calc():
+        return Calculator(model=base.model, config=canon, dense=False)
 
     calc = new_calc()
     g = calc.graph_for(rattled_supercell(4))
@@ -347,30 +561,60 @@ def main() -> int:
                                     .max().item())}
     kernels = kernel_phase(seg, failures)
     del batch, seg
+    dcalc = new_dense_calc()
+    dbatch = dcalc.batch_for(dcalc.graph_for(rattled_supercell(4)))
+    if not dbatch.dense_D:
+        failures.append("si512_rattled: the dense Calculator built a "
+                        "sparse batch")
+    else:
+        D, n = dbatch.dense_D, dbatch.z.shape[0]
+        dshape = {"nodes": n, "D": D, "edge_rows": n * D,
+                  "pair_rows": n * D * D, "features": 256,
+                  "real_pairs": int(dbatch.lg_mask.sum().item())}
+        kernels.update(dense_kernel_phase(dbatch, failures))
+    del dbatch
     torch.cuda.empty_cache()
 
-    cpu_calc = Calculator(path=MODEL_DIR, device="cpu")
-    cells, launches = slice_phase(new_calc, cpu_calc, failures)
-    for row in cells:
+    cpu_base = Calculator(path=MODEL_DIR, device="cpu")
+
+    # sparse slice: counts from 0 over its three cells
+    reset_launches()
+    rows = run_cells(new_calc, si_cells(), False, failures)
+    sparse_launches = read_launches()
+    check_against(rows[:2], lambda: cpu_base, "cpu_port", failures)
+    for row, _a, _r in rows:
         emit({"phase": "slice", **row})
 
-    source = "alignn_tpu_torch/csrc/eggc.cu"
+    # dense slice: counts from 0 over its three cells
+    reset_launches()
+    drows = run_cells(new_dense_calc, si_cells(), True, failures)
+    dense_launches = read_launches()
+    check_against(drows, new_canon_sparse_calc, "sparse_on_card", failures)
+    check_against(drows[:2], lambda: Calculator(
+        model=cpu_base.model, config=canon, dense=True, device="cpu"),
+        "cpu_port", failures)
+    for row, _a, _r in drows:
+        emit({"phase": "dense_slice", **row})
+    emit({"phase": "batch", **batch_phase(base.model, failures)})
+
     line = []
-    for key, name, replaces in (
-            ("K1", "eggc_gated_aggregate", "alignn_tpu/ops/pallas_eggc.py:45"),
-            ("K2", "sorted_segment_sum", "alignn_tpu/ops/pallas_eggc.py:178")):
-        r = kernels[key]
+    for key, name, source, replaces in KERNELS:
+        r = kernels.get(key)
+        if r is None:
+            continue
         f32 = r["float32"]
+        dense = key in ("K3", "K4", "K5a")
         line.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[key],
+            "replaces": replaces,
+            "launches": (dense_launches if dense else sparse_launches)[key],
             "max_abs_err": f32["max_abs_err"], "rel_err": f32["rel_err"],
             "tol_rel": f32["tol_rel"],
             "ms": f32["ms"], "kernel_ms": f32["ms"],
             "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
             "bound_by": f32["bound_by"],
             "library_ms": f32.get("library_ms"),
-            "shape": shape, "bfloat16": r["bfloat16"],
+            "shape": dshape if dense else shape, "bfloat16": r["bfloat16"],
             **({"backward": r["backward"]} if "backward" in r else {})})
     emit({"kernels": line})
     if failures:
