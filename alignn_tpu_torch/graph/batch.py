@@ -22,7 +22,7 @@ batches without them.  The dense-neighbourhood layout fills the same
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -72,6 +72,12 @@ class GraphBatch:
     volume: torch.Tensor         # [G]
     n_nodes: torch.Tensor        # [G] real atom counts
     graph_mask: torch.Tensor     # [G]
+    # training targets, zero where a graph has no label
+    target: torch.Tensor         # [G, T]
+    forces: torch.Tensor         # [N, 3]
+    stress: torch.Tensor         # [G, 3, 3]
+    atomwise_target: torch.Tensor  # [N, A]
+    additional: torch.Tensor     # [G, Fadd]
     # message-passing stages: g (atoms <- bonds), L(g) (bonds <- angles);
     # a dense batch has no lg_index (its L-stage is local pairs)
     g_index: Incidence
@@ -134,10 +140,53 @@ def _incidence(src: np.ndarray, dst: Optional[np.ndarray], num_dst: int,
         dst=None if dst is None else Segments.from_sorted(t(dst), num_dst))
 
 
+def padded_labels(graphs: Sequence[GraphData], n_pad: int, g_pad: int,
+                  target_width: int = 1, atomwise_width: int = 0,
+                  additional_width: int = 0) -> Dict[str, np.ndarray]:
+    """The training targets of graphs whose nodes take consecutive rows
+    from 0, padded with zeros, under the width rules of the JAX batch
+    functions: a width below 1 still gives one column; a graph target of
+    another width raises."""
+    target = np.zeros((g_pad, max(target_width, 1)))
+    forces = np.zeros((n_pad, 3))
+    stress = np.zeros((g_pad, 3, 3))
+    atomwise = np.zeros((n_pad, max(atomwise_width, 1)))
+    additional = np.zeros((g_pad, max(additional_width, 1)))
+    n_off = 0
+    for gi, g in enumerate(graphs):
+        nn = g.num_nodes
+        ns = slice(n_off, n_off + nn)
+        if g.target is not None:
+            tg = np.asarray(g.target, dtype=np.float64).reshape(-1)
+            if tg.shape[0] != target.shape[1]:
+                # numpy would broadcast a scalar across a wider row or cut
+                # a wider target: both corrupt the labels
+                raise ValueError(
+                    f"graph target width {tg.shape[0]} != batch "
+                    f"target_width {target.shape[1]} (set target_width/"
+                    f"model.output_features to the dataset's width)")
+            target[gi] = tg
+        if g.forces is not None:
+            forces[ns] = g.forces
+        if g.stress is not None:
+            stress[gi] = g.stress
+        if g.atomwise_target is not None:
+            atomwise[ns] = np.asarray(g.atomwise_target).reshape(nn, -1)
+        if g.additional is not None:
+            additional[gi] = np.asarray(g.additional).reshape(-1)[
+                : additional.shape[1]]
+        n_off += nn
+    return {"target": target, "forces": forces, "stress": stress,
+            "atomwise_target": atomwise, "additional": additional}
+
+
 def batch_graphs(graphs: List[GraphData], spec: BucketSpec,
                  device: torch.device, atom_features: str = "cgcnn",
-                 dtype: torch.dtype = torch.float32) -> GraphBatch:
-    """Concatenate + pad graphs into one :class:`GraphBatch` on `device`."""
+                 dtype: torch.dtype = torch.float32, target_width: int = 1,
+                 atomwise_width: int = 0,
+                 additional_width: int = 0) -> GraphBatch:
+    """Concatenate + pad graphs into one :class:`GraphBatch` on `device`,
+    with their training targets (:func:`padded_labels`)."""
     n_pad, e_pad = spec.n_nodes, spec.n_edges
     l_pad, g_pad = spec.n_lg_edges, spec.n_graphs
     n_tot = sum(g.num_nodes for g in graphs)
@@ -211,6 +260,9 @@ def batch_graphs(graphs: List[GraphData], spec: BucketSpec,
         lg_src=i(lg_src), lg_dst=i(lg_dst), lg_mask=f(lg_mask),
         lattice=f(lattice), volume=f(volume), n_nodes=f(n_nodes),
         graph_mask=f(graph_mask),
+        **{k: f(v) for k, v in padded_labels(
+            graphs, n_pad, g_pad, target_width, atomwise_width,
+            additional_width).items()},
         g_index=_incidence(src, dst, n_pad, n_pad, device),
         lg_index=_incidence(lg_src, lg_dst, e_pad, e_pad, device),
     )

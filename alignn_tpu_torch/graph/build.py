@@ -34,6 +34,12 @@ class GraphData:
     images: np.ndarray       # [E, 3] periodic image of dst (float)
     lg_src: Optional[np.ndarray] = None  # [L] int32 edge ids
     lg_dst: Optional[np.ndarray] = None  # [L] int32 edge ids, ascending
+    # optional training labels
+    target: Optional[np.ndarray] = None            # [T] graph-level
+    atomwise_target: Optional[np.ndarray] = None   # [N, A]
+    forces: Optional[np.ndarray] = None            # [N, 3]
+    stress: Optional[np.ndarray] = None            # [3, 3]
+    additional: Optional[np.ndarray] = None        # [Fadd]
 
     @property
     def num_nodes(self) -> int:
@@ -304,3 +310,35 @@ def build_graph(atoms: Atoms, neighbor_strategy: str = "k-nearest",
         lg_src=lg_src,
         lg_dst=lg_dst,
     )
+
+
+ROCKSALT_FRAC = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5],
+                          [0, 0.5, 0.5], [0.5, 0, 0], [0, 0.5, 0],
+                          [0, 0, 0.5], [0.5, 0.5, 0.5]])
+ROCKSALT_ELEMENTS = ["Na", "Cl", "K", "Br", "Mg", "O", "Ca", "S"]
+
+
+def rocksalt_graphs(n: int, seed: int = 0, rattle: float = 0.02) -> list:
+    """`n` labelled, rattled 8-atom rocksalt cells (cubic, a = 4.2 + 0.3
+    N(0, 1) Å), each as a k-NN graph (12 neighbours, cutoff 8 Å): the
+    synthetic batch of ``bench.py``.
+
+    One numpy generator from `seed` draws, cell by cell: the lattice
+    constant, the rattle of the fractional coordinates (`rattle` times
+    N(0, 1)), the energy target N(0, 1) and the forces 0.1 N(0, 1); the
+    stress label is 0.01 I.  ``bench.py`` draws in this order with rattle
+    0.02, ``tests/test_dense.py`` with rattle 0.03.
+    """
+    rng = np.random.default_rng(seed)
+    graphs = []
+    for _ in range(n):
+        a = 4.2 + 0.3 * rng.standard_normal()
+        frac = ROCKSALT_FRAC + rattle * rng.standard_normal((8, 3))
+        g = build_graph(Atoms(lattice_mat=np.eye(3) * a, frac_coords=frac,
+                              elements=ROCKSALT_ELEMENTS),
+                        cutoff=8.0, max_neighbors=12)
+        g.target = np.array([rng.standard_normal()])
+        g.forces = rng.standard_normal((8, 3)) * 0.1
+        g.stress = np.eye(3) * 0.01
+        graphs.append(g)
+    return graphs

@@ -29,7 +29,7 @@ import torch
 
 from alignn_tpu_torch.chem.features import attribute_lookup_table
 from alignn_tpu_torch.graph.batch import (BucketSpec, GraphBatch, _incidence,
-                                          _round_up)
+                                          _round_up, padded_labels)
 from alignn_tpu_torch.graph.build import GraphData
 
 
@@ -76,8 +76,11 @@ class AsymmetricEdgesError(ValueError):
 
 def dense_batch_graphs(graphs: List[GraphData], spec: BucketSpec,
                        device: torch.device, atom_features: str = "cgcnn",
-                       dtype: torch.dtype = torch.float32) -> GraphBatch:
-    """Concatenate + pad graphs into a dense-neighbourhood GraphBatch.
+                       dtype: torch.dtype = torch.float32,
+                       target_width: int = 1, atomwise_width: int = 0,
+                       additional_width: int = 0) -> GraphBatch:
+    """Concatenate + pad graphs into a dense-neighbourhood GraphBatch, with
+    their training targets (:func:`padded_labels`).
 
     Layout contract (the dense paths of nn/layers.py and nn/models.py
     rely on it):
@@ -201,5 +204,8 @@ def dense_batch_graphs(graphs: List[GraphData], spec: BucketSpec,
         lg_src=i(lg_src), lg_dst=i(lg_dst), lg_mask=f(lg_mask),
         lattice=f(lattice), volume=f(volume), n_nodes=f(n_nodes),
         graph_mask=f(graph_mask),
+        **{k: f(v) for k, v in padded_labels(
+            graphs, n_pad, g_pad, target_width, atomwise_width,
+            additional_width).items()},
         g_index=_incidence(src, None, n_pad, n_pad, device),
         lg_index=None, dense_D=D, rev=i(rev))

@@ -11,6 +11,7 @@ gradient (:func:`atomwise_forward`).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict
 
 import torch
@@ -18,8 +19,8 @@ from torch import nn
 
 from alignn_tpu_torch.graph.batch import GraphBatch
 from alignn_tpu_torch.nn.layers import (ALIGNNConv, Dense, DenseWiring,
-                                        EdgeGatedGraphConv, MLPLayer,
-                                        RBFExpansion)
+                                        EdgeGatedGraphConv, MaskedLayerNorm,
+                                        MLPLayer, RBFExpansion)
 from alignn_tpu_torch.ops.basis import (bond_cosines, bond_cosines_dense,
                                         cutoff_function_based_edges)
 from alignn_tpu_torch.ops.eggc import permute_rows
@@ -190,6 +191,25 @@ class ALIGNNAtomWise(nn.Module):
         return atomwise_heads(self, batch, x, bondlength)
 
 
+def init_parameters(model: nn.Module,
+                    generator: torch.Generator) -> nn.Module:
+    """Redraw every parameter from `generator` (a CPU generator, so the
+    draws do not depend on the device) with the modules' default laws:
+    Dense weight and bias U(-1/sqrt(fan_in), 1/sqrt(fan_in)) as
+    ``nn.Linear`` draws them, LayerNorm scale 1 and bias 0."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.Linear):
+                bound = 1.0 / math.sqrt(m.in_features)
+                for p in (m.weight, m.bias):
+                    p.copy_(torch.empty(p.shape).uniform_(
+                        -bound, bound, generator=generator))
+            elif isinstance(m, MaskedLayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+    return model
+
+
 def atomwise_heads(model: ALIGNNAtomWise, batch: GraphBatch,
                    x: torch.Tensor, bondlength: torch.Tensor
                    ) -> Dict[str, torch.Tensor]:
@@ -252,7 +272,10 @@ def atomwise_forward(model: ALIGNNAtomWise, batch: GraphBatch,
       forces_i    = sum_{e: dst=i} pf_e - sum_{e: src=i} pf_e
       stress_g    = -stress_mult * 160.2177 * (r_g^T pf_g) / V_g
 
-    Serving passes ``create_graph=False``; training will need True.
+    Serving passes ``create_graph=False``.  A training step passes True:
+    its loss holds the forces and stress, so its backward runs through
+    this gradient (the second order of every op of the model).  The
+    stress reads ``batch.r``, a constant, as the JAX function does.
     """
     cfg = model.cfg
     num_graphs = batch.graph_mask.shape[0]

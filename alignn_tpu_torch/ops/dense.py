@@ -22,13 +22,22 @@ numerator, the denominator and every gradient.
   dbh reduction that JAX leaves to XLA (``:453-457``).  JAX makes the
   kernel opt-in (``ALIGNN_TPU_PAIR_BWD_KERNEL``) because XLA fuses its
   plain rule into the matmul VJPs; PyTorch fuses nothing, so here the
-  kernel is the default.  Its own derivative (``_xla_pair_bwd2``, K5b)
-  belongs to the dense training slice and raises until then.
+  kernel is the default.
+- K5b ``pair_aggregate_bwd2``: (c_m2, c_bh, c_g), the VJP of K5a with
+  cotangents (u, v) on (dm2, dbh), i.e. the second order of K4 that the
+  E/F/S training step runs (its loss holds the forces, -dE/dr).  Replaces
+  ``_pair_bwd2_kernel`` (``:533``, launched at ``:593``) and the c_bh
+  reduction left to XLA (``:619-625``); its plain version is
+  ``_xla_pair_bwd2`` (``:485-530``).  On the default path for the same
+  reason as K5a.  A third derivative raises: nothing needs one.
 
-All three kernels are in ``csrc/dense.cu``.  Bound on an H100 SXM at the
+K3's second order is autograd through its plain backward, as in JAX,
+whose ``gated_aggregate_bwd`` is opt-in and has no kernel.
+
+All four kernels are in ``csrc/dense.cu``.  Bound on an H100 SXM at the
 512-atom dense shape (N 768, D 18, F 256, f32), all by bytes at
 3.35 TB/s: K3 29 MB (0.009 ms), K4 283 MB (0.085 ms), K5a 552 MB
-(0.165 ms).
+(0.165 ms), K5b 835 MB (0.249 ms).
 
 Dispatch rule of every wrapper (as in :mod:`alignn_tpu_torch.ops.eggc`):
 a tensor on the CPU takes the plain PyTorch version (``*_plain``); a
@@ -102,6 +111,50 @@ def pair_aggregate_bwd_plain(m2: torch.Tensor, bh: torch.Tensor,
     return dm2.to(m2.dtype), dbh.to(bh.dtype)
 
 
+def pair_aggregate_bwd2_plain(m2: torch.Tensor, bh: torch.Tensor,
+                              g: torch.Tensor, u: torch.Tensor,
+                              v: torch.Tensor, D: int):
+    """(c_m2, c_bh, c_g): VJP of K5a at (m2, bh, g) with cotangents u on
+    dm2 and v on dbh (JAX ``_xla_pair_bwd2``), all in f32.
+
+    With sig' = sig (1 - sig), sig'' = sig' (1 - 2 sig), den_t = sum_s sig
+    + 1e-6, h_t = num_t / den_t, ginv_t = g_t / den_t, gh_t = -g_t h_t /
+    den_t, k_t = -g_t / den_t^2 and the row sums A_t = sum_s u sig',
+    Bq_t = sum_s u sig' bh_s, C_t = sum_s v_s sig:
+
+      c_g_t   = (Bq_t - h_t A_t + C_t) / den_t
+      c_bh_s  = sum_t [u sig' ginv_t + sig k_t A_t]
+      c_m2_ts = u sig'' (bh_s ginv_t + gh_t)
+                + sig' [k_t (Bq_t - 2 h_t A_t + bh_s A_t + C_t) + v_s ginv_t]
+    """
+    f = m2.shape[-1]
+    n = bh.shape[0] // D
+    sig = torch.sigmoid(m2.float()).reshape(n, D, D, f)
+    sigp = sig * (1.0 - sig)
+    sigpp = sigp * (1.0 - 2.0 * sig)
+    bh4 = bh.float().reshape(n, 1, D, f)
+    u4 = u.float().reshape(n, D, D, f)
+    v4 = v.float().reshape(n, 1, D, f)
+    den = sig.sum(dim=2) + EPS                       # [n, t, F]
+    h = (sig * bh4).sum(dim=2) / den
+    g32 = g.float().reshape(n, D, f)
+    ginv = g32 / den
+    gh = -g32 * h / den
+    a = (u4 * sigp).sum(dim=2)
+    bq = (u4 * sigp * bh4).sum(dim=2)
+    cc = (v4 * sig).sum(dim=2)
+    c_g = ((bq - h * a + cc) / den).reshape(-1, f)
+    k = -g32 / (den * den)
+    c_bh = (u4 * sigp * ginv[:, :, None, :]
+            + sig * (k * a)[:, :, None, :]).sum(dim=1).reshape(-1, f)
+    c_m2 = (u4 * sigpp * (bh4 * ginv[:, :, None, :] + gh[:, :, None, :])
+            + sigp * (k[:, :, None, :]
+                      * ((bq - 2.0 * h * a + cc)[:, :, None, :]
+                         + bh4 * a[:, :, None, :])
+                      + v4 * ginv[:, :, None, :])).reshape(-1, f)
+    return c_m2.to(m2.dtype), c_bh.to(bh.dtype), c_g.to(g.dtype)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
@@ -118,8 +171,24 @@ def _lib() -> ctypes.CDLL:
         lib.alignn_pair_aggregate_bwd.argtypes = [p, ll, p, ll, p, ll, p, p,
                                                   i, i, i, i, p]
         lib.alignn_pair_aggregate_bwd.restype = i
+        lib.alignn_pair_aggregate_bwd2.argtypes = [p, ll] * 5 + [
+            p, p, p, i, i, i, i, p]
+        lib.alignn_pair_aggregate_bwd2.restype = i
         lib._alignn_configured = True
     return lib
+
+
+ERR_SMEM = -1   # kErrSmem in dense.cu: D too large for a block
+
+
+def _raise_on_pair(rc: int, name: str, D: int):
+    """_raise_on, with a clear error where dense.cu found D too large for
+    the shared memory of one K4/K5a/K5b block (it stages [D, 128] f32
+    planes: 1 for K4, 3 for K5a, 6 for K5b)."""
+    if rc == ERR_SMEM:
+        raise ValueError(f"{name}: D = {D} needs more shared memory per "
+                         f"block than the card allows")
+    _raise_on(rc, name)
 
 
 def _check(name: str, x: torch.Tensor, rows: int, like: torch.Tensor):
@@ -186,7 +255,7 @@ def dense_pair_aggregate_cuda(m2: torch.Tensor, bh: torch.Tensor,
             rc = _lib().alignn_dense_pair_aggregate(
                 m2.data_ptr(), m2.stride(0), bh.data_ptr(), bh.stride(0),
                 out.data_ptr(), n, D, f, _DTYPE_CODE[bh.dtype], _stream(bh))
-        _raise_on(rc, "dense_pair_aggregate")
+        _raise_on_pair(rc, "dense_pair_aggregate", D)
         dense_pair_aggregate_cuda.launches += 1
     return out
 
@@ -210,7 +279,7 @@ def pair_aggregate_bwd_cuda(m2: torch.Tensor, bh: torch.Tensor,
                 m2.data_ptr(), m2.stride(0), bh.data_ptr(), bh.stride(0),
                 g.data_ptr(), g.stride(0), dm2.data_ptr(), dbh.data_ptr(), n,
                 D, f, _DTYPE_CODE[bh.dtype], _stream(bh))
-        _raise_on(rc, "pair_aggregate_bwd")
+        _raise_on_pair(rc, "pair_aggregate_bwd", D)
         pair_aggregate_bwd_cuda.launches += 1
     return dm2, dbh
 
@@ -218,17 +287,50 @@ def pair_aggregate_bwd_cuda(m2: torch.Tensor, bh: torch.Tensor,
 pair_aggregate_bwd_cuda.launches = 0
 
 
+def pair_aggregate_bwd2_cuda(m2: torch.Tensor, bh: torch.Tensor,
+                             g: torch.Tensor, u: torch.Tensor,
+                             v: torch.Tensor, D: int):
+    """K5b on the card: (c_m2 [N*D*D, F], c_bh [N*D, F], c_g [N*D, F]) in
+    the input dtype, f32 arithmetic."""
+    name = "pair_aggregate_bwd2"
+    n = _blocks(name, bh, D)
+    for x, rows in ((m2, n * D * D), (bh, n * D), (g, n * D),
+                    (u, n * D * D), (v, n * D)):
+        _check(name, x, rows, bh)
+    f = bh.shape[1]
+    c_m2 = torch.empty((n * D * D, f), dtype=bh.dtype, device=bh.device)
+    c_bh = torch.empty((n * D, f), dtype=bh.dtype, device=bh.device)
+    c_g = torch.empty((n * D, f), dtype=bh.dtype, device=bh.device)
+    if c_bh.numel():
+        with torch.cuda.device(bh.device):
+            rc = _lib().alignn_pair_aggregate_bwd2(
+                m2.data_ptr(), m2.stride(0), bh.data_ptr(), bh.stride(0),
+                g.data_ptr(), g.stride(0), u.data_ptr(), u.stride(0),
+                v.data_ptr(), v.stride(0), c_m2.data_ptr(), c_bh.data_ptr(),
+                c_g.data_ptr(), n, D, f, _DTYPE_CODE[bh.dtype], _stream(bh))
+        _raise_on_pair(rc, name, D)
+        pair_aggregate_bwd2_cuda.launches += 1
+    return c_m2, c_bh, c_g
+
+
+pair_aggregate_bwd2_cuda.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # differentiable entry points
 # ---------------------------------------------------------------------------
 
 
+# Inputs may have any stride: each forward hands its kernel unit-stride
+# copies and saves the inputs as they came (see ops/eggc.py).
+
+
 class _DenseGatedAggregate(torch.autograd.Function):
     @staticmethod
     def forward(ctx, m, bh, D):
-        m, bh = _unit_stride(m), _unit_stride(bh)
         h = _dispatch(m, dense_gated_aggregate_plain,
-                      dense_gated_aggregate_cuda, m, bh, D)
+                      dense_gated_aggregate_cuda, _unit_stride(m),
+                      _unit_stride(bh), D)
         ctx.D = D
         ctx.save_for_backward(m, bh, h)
         return h
@@ -260,9 +362,9 @@ def dense_gated_aggregate(m: torch.Tensor, bh: torch.Tensor,
 class _DensePairAggregate(torch.autograd.Function):
     @staticmethod
     def forward(ctx, m2, bh, D):
-        m2, bh = _unit_stride(m2), _unit_stride(bh)
         h = _dispatch(bh, dense_pair_aggregate_plain,
-                      dense_pair_aggregate_cuda, m2, bh, D)
+                      dense_pair_aggregate_cuda, _unit_stride(m2),
+                      _unit_stride(bh), D)
         ctx.D = D
         ctx.save_for_backward(m2, bh)
         return h
@@ -288,20 +390,42 @@ def dense_pair_aggregate(m2: torch.Tensor, bh: torch.Tensor,
 class _PairAggregateBwd(torch.autograd.Function):
     @staticmethod
     def forward(ctx, m2, bh, g, D):
-        m2, bh, g = _unit_stride(m2), _unit_stride(bh), _unit_stride(g)
+        ctx.D = D
+        ctx.save_for_backward(m2, bh, g)
         return _dispatch(bh, pair_aggregate_bwd_plain,
-                         pair_aggregate_bwd_cuda, m2, bh, g, D)
+                         pair_aggregate_bwd_cuda, _unit_stride(m2),
+                         _unit_stride(bh), _unit_stride(g), D)
 
     @staticmethod
     def backward(ctx, u, v):
+        m2, bh, g = ctx.saved_tensors
+        return (*pair_aggregate_bwd2(m2, bh, g, u, v, ctx.D), None)
+
+
+class _PairAggregateBwd2(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, m2, bh, g, u, v, D):
+        return _dispatch(bh, pair_aggregate_bwd2_plain,
+                         pair_aggregate_bwd2_cuda,
+                         *(_unit_stride(x) for x in (m2, bh, g, u, v)), D)
+
+    @staticmethod
+    def backward(ctx, *cotangents):
         raise NotImplementedError(
-            "the second derivative of the dense pair aggregation (K5b, "
-            "JAX _xla_pair_bwd2) is not ported yet: it comes with the "
-            "dense E/F/S training slice")
+            "the third derivative of the dense pair aggregation (the VJP "
+            "of K5b) is not implemented: no training objective needs it")
 
 
 def pair_aggregate_bwd(m2: torch.Tensor, bh: torch.Tensor, g: torch.Tensor,
                        D: int):
     """(dm2, dbh) = VJP of :func:`dense_pair_aggregate` at (m2, bh) with
-    cotangent g (K5a).  Differentiating it again raises."""
+    cotangent g (K5a).  Its own VJP is K5b (:func:`pair_aggregate_bwd2`);
+    a third derivative raises."""
     return _PairAggregateBwd.apply(m2, bh, g, D)
+
+
+def pair_aggregate_bwd2(m2: torch.Tensor, bh: torch.Tensor, g: torch.Tensor,
+                        u: torch.Tensor, v: torch.Tensor, D: int):
+    """(c_m2, c_bh, c_g) = VJP of :func:`pair_aggregate_bwd` at (m2, bh, g)
+    with cotangents (u, v) on (dm2, dbh) (K5b).  Not differentiable."""
+    return _PairAggregateBwd2.apply(m2, bh, g, u, v, D)

@@ -209,12 +209,22 @@ def _dispatch(x: torch.Tensor, plain, kernel, *args):
 
 
 def _unit_stride(x: torch.Tensor) -> torch.Tensor:
-    """The kernels take any row stride but need a unit-stride feature axis."""
+    """The kernels take any row stride but need a unit-stride feature axis.
+
+    The copy feeds the kernel only.  An autograd Function saves its own
+    inputs and outputs, never this copy: a saved tensor that is neither
+    has no graph, so a double backward would treat it as a constant.
+    """
     return x if x.dim() == 2 and x.stride(1) == 1 else x.contiguous()
 
 
 # ---------------------------------------------------------------------------
 # differentiable entry points
+#
+# Every Function below takes inputs of any stride.  Its forward hands the
+# kernel unit-stride copies (_unit_stride) and saves the inputs as they
+# came; its backward works on those saved inputs with differentiable ops
+# or Functions, which make their own copies where a kernel needs one.
 # ---------------------------------------------------------------------------
 
 
@@ -296,9 +306,8 @@ def gather_nodes(x: torch.Tensor, idx: torch.Tensor, perm: torch.Tensor,
 class _GatedAggregate(torch.autograd.Function):
     @staticmethod
     def forward(ctx, m, bh, seg):
-        m, bh = _unit_stride(m), _unit_stride(bh)
         h = _dispatch(m, gated_aggregate_plain, gated_aggregate_cuda,
-                      m, bh, seg)
+                      _unit_stride(m), _unit_stride(bh), seg)
         ctx.seg = seg
         ctx.save_for_backward(m, bh, h)
         return h

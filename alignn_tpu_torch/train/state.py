@@ -1,0 +1,116 @@
+"""Train state and the train/eval step factories.
+
+Counterpart of ``alignn_tpu/train/state.py``.  One training step is the
+force-field forward with ``create_graph=True`` (the forces are -dE/dr, so
+the loss differentiates through that gradient), the weighted loss, one
+backward and one optimizer update.  PyTorch runs eagerly, so there is no
+jit and no donation; the data-parallel step (``axis_name``) comes with
+DDP.  The losses come back as tensors on the batch's device: nothing in
+a step copies to the host or waits for the device.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, Tuple
+
+import torch
+from torch import nn
+
+from alignn_tpu_torch.graph.batch import GraphBatch
+from alignn_tpu_torch.nn.models import ALIGNNAtomWise, atomwise_forward
+from alignn_tpu_torch.train.losses import atomwise_loss, property_loss
+from alignn_tpu_torch.train.optim import OptimizerSpec, set_lr
+
+
+@dataclass
+class TrainState:
+    """The step count, the model (its parameters) and its optimizer."""
+
+    step: int
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+
+    def set_lr(self, lr: float) -> "TrainState":
+        """Write the learning rate (host side, per epoch)."""
+        set_lr(self.optimizer, lr)
+        return self
+
+
+def create_train_state(model: nn.Module, sample_batch: GraphBatch,
+                       tx: OptimizerSpec) -> TrainState:
+    """The model on the sample batch's device, with a fresh optimizer.
+
+    The port's modules are initialised when they are built (from a
+    ``torch.Generator`` or a carried-over state dict), so unlike the JAX
+    function this draws nothing.  A model with BatchNorm statistics
+    raises: the port has no BatchNorm yet.
+    """
+    if any(isinstance(m, nn.modules.batchnorm._NormBase)
+           for m in model.modules()):
+        raise NotImplementedError("BatchNorm statistics (batch_stats) are "
+                                  "not ported yet")
+    model.to(sample_batch.r.device)
+    return TrainState(step=0, model=model, optimizer=tx.init(model))
+
+
+def _forward_and_loss(model: nn.Module, batch: GraphBatch, criterion: str,
+                      classification: bool, create_graph: bool
+                      ) -> Tuple[Dict[str, torch.Tensor],
+                                 Dict[str, torch.Tensor]]:
+    """(losses, predictions); `create_graph` keeps the force pass
+    differentiable for a training step."""
+    if isinstance(model, ALIGNNAtomWise):
+        res = atomwise_forward(model, batch, create_graph=create_graph)
+        return atomwise_loss(res, batch, model.cfg,
+                             classification=classification), res
+    out = model(batch)
+    return ({"loss": property_loss(out, batch, criterion, classification)},
+            {"out": out})
+
+
+def _check_state(state: TrainState, model: nn.Module):
+    if state.model is not model:
+        raise ValueError("the train state holds another model than the one "
+                         "the step was made for")
+
+
+def make_train_step(model: nn.Module, criterion: str = "l1",
+                    classification: bool = False) -> Callable:
+    """(state, batch) -> (state, losses), updating the model in place."""
+
+    def step(state: TrainState, batch: GraphBatch):
+        _check_state(state, model)
+        state.optimizer.zero_grad(set_to_none=True)
+        model.train()
+        losses, _res = _forward_and_loss(model, batch, criterion,
+                                         classification, create_graph=True)
+        losses["loss"].backward()
+        for p in model.parameters():
+            if p.grad is None:
+                # unused by this loss (the last L-stage's pair features):
+                # a zero gradient, so that weight decay still applies, as
+                # in optax
+                p.grad = torch.zeros_like(p)
+        state.optimizer.step()
+        state.step += 1
+        return state, {k: v.detach() for k, v in losses.items()}
+
+    return step
+
+
+def make_eval_step(model: nn.Module, criterion: str = "l1",
+                   classification: bool = False) -> Callable:
+    """(state, batch) -> (losses, predictions), with no parameter graph."""
+
+    def step(state: TrainState, batch: GraphBatch):
+        _check_state(state, model)
+        model.eval()
+        with torch.no_grad():   # the force pass enables grad on r itself
+            losses, res = _forward_and_loss(model, batch, criterion,
+                                            classification,
+                                            create_graph=False)
+        return ({k: v.detach() for k, v in losses.items()},
+                {k: v.detach() for k, v in res.items()})
+
+    return step

@@ -6,13 +6,14 @@
 Phases:
 1. set-up: the card's name and power limit, TF32 off, the CUDA kernels
    built from ``alignn_tpu_torch/csrc`` (build seconds printed);
-2. every kernel of the serving paths against its plain PyTorch version on
-   the card, in f32 and bf16, with device times (CUDA events, median of 20
-   after warm-up, queued behind a spin kernel) and the bound: K1 gated aggregation and K2 sorted segment sum
-   at the sparse L-stage shape of the 512-atom cell below; K3 dense gated
-   aggregation, K4 local-pair aggregation and K5a its backward at the
-   dense shapes of the same cell (edge rows [N*D, 256], pair rows
-   [N*D*D, 256]);
+2. every kernel of the serving and training paths against its plain
+   PyTorch version on the card, in f32 and bf16, with device times (CUDA
+   events, median of 20 after warm-up, queued behind a spin kernel) and
+   the bound: K1 gated aggregation and K2 sorted segment sum at the sparse
+   L-stage shape of the 512-atom cell below; K3 dense gated aggregation,
+   K4 local-pair aggregation, K5a its backward and K5b its second order
+   at the dense shapes of the same cell (edge rows [N*D, 256], pair rows
+   [N*D*D, 256]), and again in phase 6 at the dense training batch's;
 3. the sparse slice: ``Calculator(path="docs/mlearn_r4/Si")`` on the
    default device on 8-, 64- and 512-atom Si (diamond, rattled
    supercells); E, forces, stress, ms per call and kernel launches per
@@ -23,7 +24,15 @@ Phases:
    the same config on the card and, at 8 and 64 atoms, the port on the
    CPU;
 5. ``dense_rocksalt_b64``: the 64 rocksalt cells of ``bench.py`` as one
-   dense batch and one sparse batch through ``atomwise_forward``.
+   dense batch and one sparse batch through ``atomwise_forward``;
+6. training on ``dense_rocksalt_b64``: K3/K4/K5a/K5b against their plain
+   versions at the dense batch's shapes (N 512, D 13), then ``bench.py``'s
+   E/F/S train step (full width, f32, seeded weights) dense and sparse, 2
+   warm-up and 10 timed steps each: ms per step, edges per second over
+   the 10 steps, losses, launches per step (the dense step must launch
+   K3, K4, K5a and K5b and no K1), peak memory and one profiled step; the
+   first step's losses and gradients dense against sparse, and on the
+   first 8 cells against the port on the CPU.
 
 Prints JSON lines; the last line is ``{"ok": true, "device": {...}}``.
 Exits non-zero, without that line, on any failed check, and when no CUDA
@@ -48,8 +57,6 @@ SPIN_CYCLES_PER_S = 2e9        # a little above the H100's 1.98 GHz boost
 DIAMOND = np.array([[0, 0, 0], [0.25, 0.25, 0.25], [0, 0.5, 0.5],
                     [0.25, 0.75, 0.75], [0.5, 0, 0.5], [0.75, 0.25, 0.75],
                     [0.5, 0.5, 0], [0.75, 0.75, 0.25]])
-ROCKSALT = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5],
-                     [0.5, 0, 0], [0, 0.5, 0], [0, 0, 0.5], [0.5, 0.5, 0.5]])
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}   # x max|plain|
 CPU_TOL = {"energy_per_atom": 1e-4, "forces": 5e-4, "stress": 1e-5}
 
@@ -229,9 +236,12 @@ def dense_kernel_phase(batch, failures: list):
     bh32 = randn(rows, f)
     m2_32 = dk.fold_mask(randn(pairs, f), batch.lg_mask)
     g32 = randn(rows, f)
+    u32, v32 = randn(pairs, f), randn(rows, f)
+    masked_pairs = batch.lg_mask == 0
     for key, fn in (("K3", "dense_gated_aggregate"),
                     ("K4", "dense_pair_aggregate"),
-                    ("K5a", "pair_aggregate_bwd")):
+                    ("K5a", "pair_aggregate_bwd"),
+                    ("K5b", "pair_aggregate_bwd2")):
         kern, plain = getattr(dk, fn + "_cuda"), getattr(dk, fn + "_plain")
         out = {}
         for dtype in (torch.float32, torch.bfloat16):
@@ -248,20 +258,36 @@ def dense_kernel_phase(batch, failures: list):
                 args = (m2_32.to(dtype), bh, D)
                 nbytes, ops = (pairs + 2 * rows) * f * es, 7.0 * pairs * f + \
                     2.0 * rows * f
-            else:
+            elif key == "K5a":
                 args = (m2_32.to(dtype), bh, g, D)
                 # read m2, bh, g; write dm2, dbh.  per pair element:
                 # sigmoid 4, sums 3, dm2 6, dbh 2; per row: ginv, gh 5
                 nbytes = (2 * pairs + 3 * rows) * f * es
                 ops = 15.0 * pairs * f + 5.0 * rows * f
+            else:
+                args = (m2_32.to(dtype), bh, g, u32.to(dtype), v32.to(dtype),
+                        D)
+                # read m2, u, bh, g, v; write c_m2, c_bh, c_g.  per pair
+                # element: sigmoid 4, sig' sig'' 4, sums 9, c_m2 10, c_bh 4;
+                # per row: h, ginv, gh, k, c_g and the k terms 15
+                nbytes = (3 * pairs + 5 * rows) * f * es
+                ops = 31.0 * pairs * f + 15.0 * rows * f
             got, ref = kern(*args), plain(*args)
             torch.cuda.synchronize()
-            if key == "K5a":
+            if key in ("K5a", "K5b"):
+                parts = ("dm2", "dbh") if key == "K5a" else \
+                    ("c_m2", "c_bh", "c_g")
                 errs = [compare(got[i], ref[i], name, failures,
-                                f"K5a pair_aggregate_bwd {part}")
-                        for i, part in enumerate(("dm2", "dbh"))]
+                                f"{key} {fn} {part}")
+                        for i, part in enumerate(parts)]
                 err = max(errs, key=lambda e: e["rel_err"])
-                err = {**err, "dm2": errs[0], "dbh": errs[1]}
+                err = {**err, **dict(zip(parts, errs))}
+                # masked pairs: exact zeros; no NaN or inf anywhere
+                if not bool((got[0][masked_pairs] == 0).all()) or not all(
+                        bool(torch.isfinite(x.float()).all()) for x in got):
+                    failures.append(f"{key} [{name}]: a masked pair row is "
+                                    f"not exactly 0, or an output is not "
+                                    f"finite")
             else:
                 err = compare(got, ref, name, failures, f"{key} {fn}")
             del got, ref
@@ -273,6 +299,13 @@ def dense_kernel_phase(batch, failures: list):
             del args
         results[key] = out
     return results
+
+
+def dense_shape(batch) -> dict:
+    """The dense kernels' operand shapes for `batch`."""
+    D, n = batch.dense_D, batch.z.shape[0]
+    return {"nodes": n, "D": D, "edge_rows": n * D, "pair_rows": n * D * D,
+            "features": 256, "real_pairs": int(batch.lg_mask.sum().item())}
 
 
 def breakdown(calc, atoms):
@@ -308,16 +341,37 @@ def breakdown(calc, atoms):
                                  ProfilerActivity.CUDA]) as prof:
             calc.calculate(atoms)
             torch.cuda.synchronize()
-    # device-side events only (kernels, copies): host ops also carry the
-    # times of the kernels they launched, which would count them twice
+    by_name, _n = device_ms_by_name(prof)
+    stages["device_busy"] = sum(by_name.values())
+    return g, stages, top_kernels(by_name)
+
+
+def device_ms_by_name(prof):
+    """({name: device ms}, count) of the kernels and copies of a profiled
+    run.
+
+    Device-side events only: host ops also carry the times of the kernels
+    they launched, which would count them twice.  A ``record_function``
+    range (the optimizer's ``Optimizer.step#...``) also appears on the
+    device as one span over its kernels and the gaps between them; it is
+    left out for the same reason.
+    """
+    import torch
+
     by_name: dict = {}
+    count = 0
     for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        if ev.device_type == torch.autograd.DeviceType.CUDA and \
+                not getattr(ev, "is_user_annotation", False):
             by_name[ev.name] = by_name.get(ev.name, 0.0) + \
                 ev.device_time_total / 1e3
-    stages["device_busy"] = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return g, stages, {name[:90]: ms for name, ms in top}
+            count += 1
+    return by_name, count
+
+
+def top_kernels(by_name: dict, n: int = 8) -> dict:
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:n]
+    return {name[:90]: ms for name, ms in top}
 
 
 def launch_counters() -> dict:
@@ -328,7 +382,8 @@ def launch_counters() -> dict:
     return {"K1": ek.gated_aggregate_cuda, "K2": ek.sorted_segment_sum_cuda,
             "K3": dk.dense_gated_aggregate_cuda,
             "K4": dk.dense_pair_aggregate_cuda,
-            "K5a": dk.pair_aggregate_bwd_cuda}
+            "K5a": dk.pair_aggregate_bwd_cuda,
+            "K5b": dk.pair_aggregate_bwd2_cuda}
 
 
 def reset_launches():
@@ -423,25 +478,10 @@ def check_against(rows, ref_calc, label: str, failures: list):
 
 
 def rocksalt_b64():
-    """The 64 rocksalt cells of ``bench.py`` (seed 0, canonized 12-NN,
-    cutoff 8 A), built by the port; the label draws of ``bench.py`` are
-    made too, so that every cell is the same."""
-    from alignn_tpu_torch.chem.atoms import Atoms
-    from alignn_tpu_torch.graph.build import build_graph
+    """The 64 labelled rocksalt cells of ``bench.py`` (seed 0)."""
+    from alignn_tpu_torch.graph.build import rocksalt_graphs
 
-    rng = np.random.default_rng(0)
-    elems = ["Na", "Cl", "K", "Br", "Mg", "O", "Ca", "S"]
-    graphs = []
-    for _ in range(64):
-        a = 4.2 + 0.3 * rng.standard_normal()
-        frac = ROCKSALT + 0.02 * rng.standard_normal((8, 3))
-        graphs.append(build_graph(
-            Atoms(lattice_mat=np.eye(3) * a, frac_coords=frac,
-                  elements=[elems[j % len(elems)] for j in range(8)]),
-            cutoff=8.0, max_neighbors=12))
-        rng.standard_normal()          # energy label
-        rng.standard_normal((8, 3))    # force labels
-    return graphs
+    return rocksalt_graphs(64, seed=0)
 
 
 def batch_phase(model, failures: list):
@@ -502,6 +542,174 @@ def batch_phase(model, failures: list):
     return row
 
 
+TRAIN_CFG = dict(  # bench.py's model and loss weights, full f32
+    name="alignn_atomwise", alignn_layers=4, gcn_layers=4,
+    hidden_features=256, embedding_features=64, gradwise_weight=10.0,
+    stresswise_weight=0.1, graphwise_weight=1.0)
+TRAIN_TOL = {"loss_rel": 1e-4, "grad_rel": 1e-3, "grad_abs": 1e-7}
+
+
+def first_step(weights, batch):
+    """(loss components, gradient of every parameter) of one train step
+    of a fresh model from `weights` on `batch`'s device."""
+    from alignn_tpu_torch.nn.models import (ALIGNNAtomWise,
+                                            ALIGNNAtomWiseConfig)
+    from alignn_tpu_torch.train.optim import build_optimizer
+    from alignn_tpu_torch.train.state import (create_train_state,
+                                              make_train_step)
+
+    model = ALIGNNAtomWise(ALIGNNAtomWiseConfig(**TRAIN_CFG))
+    model.load_state_dict(weights)
+    state = create_train_state(model, batch,
+                               build_optimizer("adamw", 1e-3, 1e-5))
+    _state, losses = make_train_step(model)(state, batch)
+    return ({k: float(v) for k, v in losses.items()},
+            {k: p.grad.detach().cpu() for k, p in model.named_parameters()})
+
+
+def step_diff(a, b, what: str, failures: list) -> dict:
+    """Loss components and gradients of two first steps, within
+    TRAIN_TOL (gradients per tensor: max abs diff <= grad_rel x that
+    tensor's max|grad| + grad_abs)."""
+    (la, ga), (lb, gb) = a, b
+    loss_rel = max(abs(la[k] - lb[k]) / max(abs(lb[k]), 1e-30) for k in lb)
+    worst, worst_name = 0.0, ""
+    for k, ref in gb.items():
+        diff = float((ga[k] - ref).abs().max())
+        ratio = diff / (TRAIN_TOL["grad_rel"] * float(ref.abs().max())
+                        + TRAIN_TOL["grad_abs"])
+        if ratio > worst:
+            worst, worst_name = ratio, k
+    if not loss_rel <= TRAIN_TOL["loss_rel"]:
+        failures.append(f"train {what}: loss components differ by "
+                        f"{loss_rel} (relative) > {TRAIN_TOL['loss_rel']}")
+    if not worst <= 1.0:
+        failures.append(f"train {what}: gradient of {worst_name} at "
+                        f"{worst} x its limit")
+    return {"loss_max_rel_diff": loss_rel,
+            "grad_worst_share_of_limit": worst, "grad_worst": worst_name}
+
+
+def train_phase(failures: list):
+    """dense_rocksalt_b64 training: bench.py's E/F/S train step (4+4/256,
+    L1 loss, AdamW lr 1e-3 wd 1e-5, f32) on the 64 labelled rocksalt
+    cells, dense then sparse, from one seeded set of weights.  First
+    K3/K4/K5a/K5b against their plain versions at the dense batch's own
+    shapes; then per layout 2 warm-up and 10 timed steps, launches per
+    step, peak memory, one profiled step; the first step's losses and
+    gradients dense against sparse, and on the first 8 cells the card
+    against the port on the CPU.
+
+    Returns (row, launches per layout over its 12 steps, kernel results
+    at the training shapes, those shapes)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from alignn_tpu_torch.graph.batch import BucketSpec, batch_graphs
+    from alignn_tpu_torch.graph.dense import (dense_batch_graphs,
+                                              dense_spec_for_batch)
+    from alignn_tpu_torch.nn.models import (ALIGNNAtomWise,
+                                            ALIGNNAtomWiseConfig,
+                                            init_parameters)
+    from alignn_tpu_torch.train.optim import build_optimizer
+    from alignn_tpu_torch.train.state import (create_train_state,
+                                              make_train_step)
+
+    dev = torch.device("cuda")
+    graphs = rocksalt_b64()
+    weights = init_parameters(ALIGNNAtomWise(ALIGNNAtomWiseConfig(
+        **TRAIN_CFG)), torch.Generator().manual_seed(0)).state_dict()
+
+    def batches(gs, device):
+        return {"dense": dense_batch_graphs(gs, dense_spec_for_batch(gs),
+                                            device),
+                "sparse": batch_graphs(gs, BucketSpec.tight_for_batch(gs),
+                                       device)}
+
+    rows, first, launch_runs = {}, {}, {}
+    for layout, batch in batches(graphs, dev).items():
+        if layout == "dense":
+            dshape = dense_shape(batch)
+            kernels = dense_kernel_phase(batch, failures)
+            torch.cuda.empty_cache()
+        model = ALIGNNAtomWise(ALIGNNAtomWiseConfig(**TRAIN_CFG))
+        model.load_state_dict(weights)
+        state = create_train_state(model, batch,
+                                   build_optimizer("adamw", 1e-3, 1e-5))
+        step = make_train_step(model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        trajectory, times = [], []
+        for i in range(12):
+            t = time.perf_counter()
+            state, losses = step(state, batch)
+            torch.cuda.synchronize()
+            if i >= 2:
+                times.append((time.perf_counter() - t) * 1e3)
+            if i == 0:   # the step leaves its gradients in place
+                first[layout] = (
+                    {k: float(v) for k, v in losses.items()},
+                    {k: p.grad.detach().cpu()
+                     for k, p in model.named_parameters()})
+            trajectory.append(losses)
+        launches = read_launches()
+        launch_runs[layout] = launches
+        peak = torch.cuda.max_memory_allocated()
+        trajectory = [{k: float(v) for k, v in ls.items()}
+                      for ls in trajectory]
+        for _ in range(2):   # the first pays the profiler's start-up
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                step(state, batch)
+                torch.cuda.synchronize()
+        by_name, n_device_ops = device_ms_by_name(prof)
+        busy = sum(by_name.values())
+        median_ms = float(np.median(times))
+        n_edges = int(batch.edge_mask.sum().item()
+                      + batch.lg_mask.sum().item())
+        rows[layout] = {
+            "layout": layout, "bucket": [batch.z.shape[0], batch.r.shape[0],
+                                         batch.lg_mask.shape[0],
+                                         batch.dense_D],
+            "ms_per_step": median_ms, "ms_steps": times,
+            "edges_per_step": n_edges,
+            # over the whole timed window, so a stall counts
+            "train_step_edges_per_s": len(times) * n_edges
+            / (sum(times) / 1e3),
+            "launches_per_step": {k: v / 12 for k, v in launches.items()},
+            "peak_memory_bytes": peak,
+            "device_busy_ms": busy, "device_busy_share": busy / median_ms,
+            "device_ops_per_step": n_device_ops,
+            "top_kernels_ms": top_kernels(by_name),
+            "losses": trajectory}
+        finite = all(np.isfinite(v) for ls in trajectory for v in ls.values())
+        if not finite:
+            failures.append(f"train {layout}: non-finite losses")
+        del state, model, batch, prof
+        torch.cuda.empty_cache()
+    dl = launch_runs["dense"]
+    if dl["K1"] != 0 or min(dl[k] for k in ("K3", "K4", "K5a", "K5b")) <= 0:
+        failures.append(f"train dense: launches {dl} (need K3, K4, K5a, "
+                        f"K5b; no K1)")
+    if launch_runs["sparse"]["K1"] <= 0 or launch_runs["sparse"]["K2"] <= 0:
+        failures.append(f"train sparse: launches {launch_runs['sparse']}")
+    checks = {"dense_vs_sparse": step_diff(first["dense"], first["sparse"],
+                                           "dense vs sparse", failures)}
+    cpu_batches = batches(graphs[:8], torch.device("cpu"))
+    for layout, batch in batches(graphs[:8], dev).items():
+        checks[f"{layout}_8_vs_cpu_port"] = step_diff(
+            first_step(weights, batch),
+            first_step(weights, cpu_batches[layout]),
+            f"{layout} 8 cells card vs CPU", failures)
+    return {"cell": "dense_rocksalt_b64", "config": TRAIN_CFG,
+            "optimizer": "adamw lr 1e-3 wd 1e-5, no decay mask",
+            "precision": "f32 (TF32 off)", "steps": "2 warm-up + 10 timed",
+            "tolerances": TRAIN_TOL, **checks,
+            "dense": rows["dense"], "sparse": rows["sparse"]}, \
+        launch_runs, kernels, dshape
+
+
 KERNELS = (  # id, name, source, replaces
     ("K1", "eggc_gated_aggregate", "alignn_tpu_torch/csrc/eggc.cu",
      "alignn_tpu/ops/pallas_eggc.py:45"),
@@ -513,6 +721,8 @@ KERNELS = (  # id, name, source, replaces
      "alignn_tpu/ops/pallas_dense.py:266"),
     ("K5a", "pair_aggregate_bwd", "alignn_tpu_torch/csrc/dense.cu",
      "alignn_tpu/ops/pallas_dense.py:395"),
+    ("K5b", "pair_aggregate_bwd2", "alignn_tpu_torch/csrc/dense.cu",
+     "alignn_tpu/ops/pallas_dense.py:533"),
 )
 
 
@@ -567,10 +777,7 @@ def main() -> int:
         failures.append("si512_rattled: the dense Calculator built a "
                         "sparse batch")
     else:
-        D, n = dbatch.dense_D, dbatch.z.shape[0]
-        dshape = {"nodes": n, "D": D, "edge_rows": n * D,
-                  "pair_rows": n * D * D, "features": 256,
-                  "real_pairs": int(dbatch.lg_mask.sum().item())}
+        dshape = dense_shape(dbatch)
         kernels.update(dense_kernel_phase(dbatch, failures))
     del dbatch
     torch.cuda.empty_cache()
@@ -596,25 +803,48 @@ def main() -> int:
     for row, _a, _r in drows:
         emit({"phase": "dense_slice", **row})
     emit({"phase": "batch", **batch_phase(base.model, failures)})
+    torch.cuda.empty_cache()
+
+    # training: counts from 0 over each layout's 12 steps
+    train_row, train_launches, train_kernels, train_shape = \
+        train_phase(failures)
+    emit({"phase": "train", **train_row})
 
     line = []
     for key, name, source, replaces in KERNELS:
         r = kernels.get(key)
         if r is None:
             continue
+        dense = key in ("K3", "K4", "K5a", "K5b")
+        # K5b runs only in training: its count, numbers and shape are the
+        # dense train step's; the other dense kernels' are the si512 cell's
+        if key == "K5b":
+            r, launches, kshape = train_kernels[key], \
+                train_launches["dense"], train_shape
+        else:
+            launches = dense_launches if dense else sparse_launches
+            kshape = dshape if dense else shape
         f32 = r["float32"]
-        dense = key in ("K3", "K4", "K5a")
         line.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": (dense_launches if dense else sparse_launches)[key],
+            "launches": launches[key],
+            "launches_per_train_step": {
+                layout: train_launches[layout][key] / 12
+                for layout in ("dense", "sparse")},
             "max_abs_err": f32["max_abs_err"], "rel_err": f32["rel_err"],
             "tol_rel": f32["tol_rel"],
             "ms": f32["ms"], "kernel_ms": f32["ms"],
             "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
             "bound_by": f32["bound_by"],
             "library_ms": f32.get("library_ms"),
-            "shape": dshape if dense else shape, "bfloat16": r["bfloat16"],
+            "shape": kshape,
+            "bfloat16": r["bfloat16"],
+            **({"at_shape": {"si512_rattled": {"shape": dshape,
+                                               **kernels[key]},
+                             "dense_rocksalt_b64": {"shape": train_shape,
+                                                    **train_kernels[key]}}}
+               if dense else {}),
             **({"backward": r["backward"]} if "backward" in r else {})})
     emit({"kernels": line})
     if failures:

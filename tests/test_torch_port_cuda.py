@@ -1,7 +1,8 @@
 """alignn_tpu_torch on the card: CUDA kernels against their plain versions.
 
-K1/K2 (``csrc/eggc.cu``) and K3/K4/K5a (``csrc/dense.cu``), then the
-Calculator on the card against the port on the CPU, sparse and dense.
+K1/K2 (``csrc/eggc.cu``) and K3/K4/K5a/K5b (``csrc/dense.cu``), then the
+Calculator and the E/F/S train step on the card against the port on the
+CPU, sparse and dense.
 
 Every test here is marked ``cuda`` and skips on a host without a GPU.
 This file imports torch and numpy only (the card's host has no JAX), so
@@ -157,27 +158,47 @@ def test_dense_kernels_match_plain(cuda, n, D, f, dtype, strided):
     m2 = dk.fold_mask(_table(rng, n * D * D, f, dtype, strided, cuda), lg)
     bh = _table(rng, n * D, f, dtype, strided, cuda)
     g = _table(rng, n * D, f, dtype, strided, cuda)
-    before = {k: fn.launches for k, fn in (
-        ("K3", dk.dense_gated_aggregate_cuda),
-        ("K4", dk.dense_pair_aggregate_cuda),
-        ("K5a", dk.pair_aggregate_bwd_cuda))}
+    u = _table(rng, n * D * D, f, dtype, strided, cuda)
+    v = _table(rng, n * D, f, dtype, strided, cuda)
+    counters = (dk.dense_gated_aggregate_cuda, dk.dense_pair_aggregate_cuda,
+                dk.pair_aggregate_bwd_cuda, dk.pair_aggregate_bwd2_cuda)
+    before = [c.launches for c in counters]
     h3 = dk.dense_gated_aggregate_cuda(m, bh, D)
     h4 = dk.dense_pair_aggregate_cuda(m2, bh, D)
     dm2, dbh = dk.pair_aggregate_bwd_cuda(m2, bh, g, D)
+    c2 = dk.pair_aggregate_bwd2_cuda(m2, bh, g, u, v, D)
     torch.cuda.synchronize()
-    assert dk.dense_gated_aggregate_cuda.launches == before["K3"] + 1
-    assert dk.dense_pair_aggregate_cuda.launches == before["K4"] + 1
-    assert dk.pair_aggregate_bwd_cuda.launches == before["K5a"] + 1
+    assert [c.launches - b for c, b in zip(counters, before)] == [1] * 4
     _close_rel(h3, dk.dense_gated_aggregate_plain(m, bh, D), dtype)
     _close_rel(h4, dk.dense_pair_aggregate_plain(m2, bh, D), dtype)
     ref_dm2, ref_dbh = dk.pair_aggregate_bwd_plain(m2, bh, g, D)
     _close_rel(dm2, ref_dm2, dtype)
     _close_rel(dbh, ref_dbh, dtype)
+    for out, ref in zip(c2, dk.pair_aggregate_bwd2_plain(m2, bh, g, u, v, D)):
+        _close_rel(out, ref, dtype)
     # masked slots: exact zeros, no NaN
+    c_m2, c_bh, c_g = c2
     assert torch.all(h3[0] == 0)
     assert torch.all(h4[:D] == 0) and torch.all(dbh[:D] == 0)
-    assert torch.all(dm2[lg == 0] == 0)
-    assert torch.isfinite(dm2.float()).all()
+    assert torch.all(dm2[lg == 0] == 0) and torch.all(c_m2[lg == 0] == 0)
+    assert torch.all(c_bh[:D] == 0) and torch.all(c_g[:D] == 0)
+    assert all(torch.isfinite(x.float()).all() for x in (dm2, *c2))
+
+
+@pytest.mark.parametrize("kernel,D", [("K4", 460), ("K5a", 160),
+                                      ("K5b", 80)])
+def test_pair_kernels_refuse_a_block_too_large(cuda, kernel, D):
+    """K4 stages one [D, 128] f32 plane, K5a three, K5b six: past 232,448
+    bytes dense.cu refuses the launch and the wrapper raises ValueError."""
+    bh = torch.zeros(D, 128, device=cuda)
+    pairs = torch.zeros(D * D, 128, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        if kernel == "K4":
+            dk.dense_pair_aggregate_cuda(pairs, bh, D)
+        elif kernel == "K5a":
+            dk.pair_aggregate_bwd_cuda(pairs, bh, bh, D)
+        else:
+            dk.pair_aggregate_bwd2_cuda(pairs, bh, bh, pairs, bh, D)
 
 
 def test_dense_autograd_runs_the_kernels(cuda):
@@ -232,3 +253,50 @@ def test_dense_calculator_cuda_matches_cpu(cuda):
     assert abs(gpu["energy"] - cpu["energy"]) / 8 < 1e-4
     np.testing.assert_allclose(gpu["forces"], cpu["forces"], atol=5e-4)
     np.testing.assert_allclose(gpu["stress"], cpu["stress"], atol=1e-5)
+
+
+@pytest.mark.parametrize("dense", [True, False], ids=["dense", "sparse"])
+def test_train_step_cuda_matches_cpu(cuda, dense):
+    """One AdamW step of a 1+1/128 model on 4 cells, card against CPU from
+    the same seeded weights: loss components to rtol 1e-4, every gradient
+    within 1e-3 x max|grad| + 1e-7.  The dense step launches K5b and no
+    K1."""
+    from alignn_tpu_torch.graph.batch import BucketSpec, batch_graphs
+    from alignn_tpu_torch.graph.build import rocksalt_graphs
+    from alignn_tpu_torch.graph.dense import (dense_batch_graphs,
+                                              dense_spec_for_batch)
+    from alignn_tpu_torch.nn.models import (ALIGNNAtomWise,
+                                            ALIGNNAtomWiseConfig,
+                                            init_parameters)
+    from alignn_tpu_torch.train.optim import build_optimizer
+    from alignn_tpu_torch.train.state import (create_train_state,
+                                              make_train_step)
+
+    graphs = rocksalt_graphs(4)
+    cfg = ALIGNNAtomWiseConfig(alignn_layers=1, gcn_layers=1,
+                               hidden_features=128, embedding_features=32,
+                               gradwise_weight=10.0, stresswise_weight=0.1)
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        batch = (dense_batch_graphs(graphs, dense_spec_for_batch(graphs), dev)
+                 if dense else batch_graphs(
+                     graphs, BucketSpec.tight_for_batch(graphs), dev))
+        model = init_parameters(ALIGNNAtomWise(cfg),
+                                torch.Generator().manual_seed(0))
+        state = create_train_state(model, batch,
+                                   build_optimizer("adamw", 1e-3, 1e-5))
+        k = (ek.gated_aggregate_cuda.launches,
+             dk.pair_aggregate_bwd2_cuda.launches)
+        _state, losses = make_train_step(model)(state, batch)
+        launches = (ek.gated_aggregate_cuda.launches - k[0],
+                    dk.pair_aggregate_bwd2_cuda.launches - k[1])
+        out[dev.type] = ({n: float(v) for n, v in losses.items()},
+                         {n: p.grad.cpu() for n, p in
+                          model.named_parameters()}, launches)
+    (lc, gc, _), (lg, gg, launches) = out["cpu"], out["cuda"]
+    assert launches == ((0, 1) if dense else (3, 0))
+    for name, ref in lc.items():
+        assert abs(lg[name] - ref) <= 1e-4 * abs(ref) + 1e-7, name
+    for name, ref in gc.items():
+        diff = float((gg[name] - ref).abs().max())
+        assert diff <= 1e-3 * float(ref.abs().max()) + 1e-7, (name, diff)

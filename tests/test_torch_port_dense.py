@@ -23,27 +23,14 @@ SI_DIR = os.path.join(REPO, "docs", "mlearn_r4", "Si")
 DIAMOND = np.array([[0, 0, 0], [0.25, 0.25, 0.25], [0, 0.5, 0.5],
                     [0.25, 0.75, 0.75], [0.5, 0, 0.5], [0.75, 0.25, 0.75],
                     [0.5, 0.5, 0], [0.75, 0.75, 0.25]])
-ROCKSALT = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5],
-                     [0.5, 0, 0], [0, 0.5, 0], [0, 0, 0.5], [0.5, 0.5, 0.5]])
 CPU = torch.device("cpu")
 
 
 def _rocksalt_graphs(n=3, seed=0):
     """The rattled 8-atom rocksalt cells of tests/test_dense.py."""
-    from alignn_tpu_torch.chem.atoms import Atoms
-    from alignn_tpu_torch.graph.build import build_graph
+    from alignn_tpu_torch.graph.build import rocksalt_graphs
 
-    rng = np.random.default_rng(seed)
-    elems = ["Na", "Cl", "K", "Br", "Mg", "O", "Ca", "S"]
-    out = []
-    for _ in range(n):
-        a = 4.2 + 0.3 * rng.standard_normal()
-        frac = ROCKSALT + 0.03 * rng.standard_normal((8, 3))
-        out.append(build_graph(
-            Atoms(lattice_mat=np.eye(3) * a, frac_coords=frac,
-                  elements=[elems[j % len(elems)] for j in range(8)]),
-            cutoff=8.0, max_neighbors=12))
-    return out
+    return rocksalt_graphs(n, seed, rattle=0.03)
 
 
 def _si8(rattle=0.0, shift=0.0):
@@ -110,6 +97,17 @@ def test_dense_builder_equals_jax(which):
     assert tb.lg_index is None and tb.g_index.dst is None
     ids = tb.g_index.src_sorted.ids.numpy()
     np.testing.assert_array_equal(ids, np.sort(tb.src.numpy()))
+
+
+def test_pair_kernel_codes_raise():
+    """dense.cu's one shared-memory guard returns ERR_SMEM, which the
+    K4/K5a/K5b wrappers raise as ValueError naming D; any other nonzero
+    code is a CUDA error (RuntimeError); 0 passes."""
+    with pytest.raises(ValueError, match="D = 80 needs more shared memory"):
+        td._raise_on_pair(td.ERR_SMEM, "pair_aggregate_bwd2", 80)
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        td._raise_on_pair(1, "pair_aggregate_bwd2", 80)
+    td._raise_on_pair(0, "pair_aggregate_bwd2", 80)
 
 
 def test_asymmetric_edges_raise_in_both():
@@ -229,13 +227,17 @@ def test_pair_aggregate_and_bwd_match_jax(monkeypatch, pallas_bwd):
     assert torch.isfinite(dm2).all() and torch.isfinite(dbh).all()
 
 
-def test_pair_bwd_refuses_a_second_derivative():
+def test_pair_bwd2_refuses_a_third_derivative():
+    """K4's second order runs (K5b); differentiating K5b raises rather
+    than passing silently through a kernel with no derivative."""
     m2, bh, g, _lg, D = _pair_problem(n=4, D=3, F=8)
     mt = torch.tensor(m2, requires_grad=True)
     h = td.dense_pair_aggregate(mt, torch.tensor(bh), D)
     (dm2,) = torch.autograd.grad(h, mt, torch.tensor(g), create_graph=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        torch.autograd.grad(dm2.sum(), mt)
+    (c_m2,) = torch.autograd.grad(torch.sum(dm2 ** 2), mt, create_graph=True)
+    assert torch.isfinite(c_m2).all()
+    with pytest.raises(NotImplementedError, match="third derivative"):
+        torch.autograd.grad(c_m2.sum(), mt)
 
 
 def test_dense_kernel_wrappers_refuse_non_cuda_tensors():
