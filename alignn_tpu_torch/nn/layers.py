@@ -9,6 +9,7 @@ one state dict drives both layouts.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional
 
 import torch
@@ -21,6 +22,7 @@ from alignn_tpu_torch.ops.dense import (dense_gated_aggregate,
                                         dense_pair_aggregate, fold_mask)
 from alignn_tpu_torch.ops.eggc import (gated_aggregate, gather_nodes,
                                        permute_rows, sorted_gather)
+from alignn_tpu_torch.ops.fused_lstage import fused_pair_lstage
 
 # flax's Dense: y = x @ kernel + bias with torch's default init, which is
 # exactly nn.Linear (the checkpoint converter transposes the kernel)
@@ -98,7 +100,8 @@ class EdgeGatedGraphConv(nn.Module):
     directly; the aggregation is K1.
 
     With a :class:`DenseWiring` the node stage runs on the dense layout
-    (aggregation K3), and :meth:`pair_stage` is the dense L-stage (K4).
+    (aggregation K3), and :meth:`pair_stage` is the dense L-stage (K4), or
+    with ``ALIGNN_TPU_FUSED_LSTAGE`` set the fused L-stage (K6, K7).
     """
 
     def __init__(self, features: int):
@@ -155,7 +158,12 @@ class EdgeGatedGraphConv(nn.Module):
         aggregated over s by K4 into rows (j, t), which rev maps back to
         the edge rev[j*D+t].  As in JAX the edge tail normalises the
         mask-folded m2 (only masked pair rows see the shift).
+
+        With ``ALIGNN_TPU_FUSED_LSTAGE`` set (the JAX package's own switch,
+        read per call as JAX reads it) the stage runs fused instead.
         """
+        if os.environ.get("ALIGNN_TPU_FUSED_LSTAGE"):
+            return self._fused_pair_stage(x, e, dense)
         f, D = self.features, dense.D
         n = x.shape[0] // D
         sg = self.src_gate(x)
@@ -168,6 +176,26 @@ class EdgeGatedGraphConv(nn.Module):
                          dense.rev)
         x_new = x + F.silu(self.norm_nodes(self.src_update(x) + h))
         e_new = e + F.silu(self.norm_edges(m2))
+        return x_new, e_new
+
+    def _fused_pair_stage(self, x, e, dense: DenseWiring):
+        """The fused L-stage (JAX ``_fused_dense_lstage``): edge_gate, the
+        gates, the aggregation and the edge tail in K6, its backward K7.
+
+        The edge mask of g folds into both sg and dg, which masks pair
+        (t, s) iff lg_mask does (rev maps real edges to real edges).  It
+        reads edge_gate and norm_edges, so one state dict drives both
+        paths.
+        """
+        sg_f = fold_mask(self.src_gate(x), dense.edge_mask)
+        dg_f = permute_rows(fold_mask(self.dst_gate(x), dense.edge_mask),
+                            dense.rev, dense.rev)
+        e_new, h_jt = fused_pair_lstage(
+            e, self.edge_gate.weight.t(), self.edge_gate.bias, sg_f, dg_f,
+            self.dst_update(x), self.norm_edges.weight, self.norm_edges.bias,
+            dense.D)
+        h = permute_rows(h_jt, dense.rev, dense.rev)
+        x_new = x + F.silu(self.norm_nodes(self.src_update(x) + h))
         return x_new, e_new
 
 

@@ -11,28 +11,36 @@ Phases:
    events, median of 20 after warm-up, queued behind a spin kernel) and
    the bound: K1 gated aggregation and K2 sorted segment sum at the sparse
    L-stage shape of the 512-atom cell below; K3 dense gated aggregation,
-   K4 local-pair aggregation, K5a its backward and K5b its second order
-   at the dense shapes of the same cell (edge rows [N*D, 256], pair rows
-   [N*D*D, 256]), and again in phase 6 at the dense training batch's;
+   K4 local-pair aggregation, K5a its backward, K5b its second order, K6
+   the fused L-stage and K7 its backward at the dense shapes of the same
+   cell (edge rows [N*D, 256], pair rows [N*D*D, 256]), and again in
+   phase 7 at the dense training batch's; K6 and K7 also with the time of
+   ``torch.addmm`` alone at K6's product (``gemm_only_ms``, a yardstick
+   the port never calls);
 3. the sparse slice: ``Calculator(path="docs/mlearn_r4/Si")`` on the
    default device on 8-, 64- and 512-atom Si (diamond, rattled
    supercells); E, forces, stress, ms per call and kernel launches per
    call; the 8- and 64-atom results against the port on the CPU;
 4. the dense slice: the same weights with ``use_canonize: true`` and
    ``dense=True`` on the same three cells, which must run the dense layout
-   (K3, K4, K5a launched, K1 not); checked against a sparse Calculator of
-   the same config on the card and, at 8 and 64 atoms, the port on the
-   CPU;
-5. ``dense_rocksalt_b64``: the 64 rocksalt cells of ``bench.py`` as one
+   (K3, K4, K5a launched; K1, K6, K7 not); checked against a sparse
+   Calculator of the same config on the card and, at 8 and 64 atoms, the
+   port on the CPU;
+5. the fused slice: the dense slice again with
+   ``ALIGNN_TPU_FUSED_LSTAGE=1`` (K3, K6, K7 launched; K1, K4, K5a not),
+   checked against the dense slice's results and, at 8 and 64 atoms, the
+   port's fused path on the CPU;
+6. ``dense_rocksalt_b64``: the 64 rocksalt cells of ``bench.py`` as one
    dense batch and one sparse batch through ``atomwise_forward``;
-6. training on ``dense_rocksalt_b64``: K3/K4/K5a/K5b against their plain
+7. training on ``dense_rocksalt_b64``: K3-K7 against their plain
    versions at the dense batch's shapes (N 512, D 13), then ``bench.py``'s
-   E/F/S train step (full width, f32, seeded weights) dense and sparse, 2
-   warm-up and 10 timed steps each: ms per step, edges per second over
-   the 10 steps, losses, launches per step (the dense step must launch
-   K3, K4, K5a and K5b and no K1), peak memory and one profiled step; the
-   first step's losses and gradients dense against sparse, and on the
-   first 8 cells against the port on the CPU.
+   E/F/S train step (full width, f32, seeded weights) dense, sparse and
+   fused dense, 2 warm-up and 10 timed steps each: ms per step, edges per
+   second over the 10 steps, losses, launches per step (dense: K3, K4,
+   K5a, K5b, no K1, K6, K7; fused: K3, K6, K7, no K1, K4, K5a, K5b), peak
+   memory and one profiled step; the first step's losses and gradients
+   dense against sparse and fused against dense, and on the first 8
+   cells against the port on the CPU.
 
 Prints JSON lines; the last line is ``{"ok": true, "device": {...}}``.
 Exits non-zero, without that line, on any failed check, and when no CUDA
@@ -41,6 +49,7 @@ device is present.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -53,6 +62,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 MODEL_DIR = os.path.join(REPO, "docs", "mlearn_r4", "Si")
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12    # f32 outside the tensor cores
+H100_BF16_FLOP_PER_S = 989e12  # bf16 products on the tensor cores (dense)
 SPIN_CYCLES_PER_S = 2e9        # a little above the H100's 1.98 GHz boost
 DIAMOND = np.array([[0, 0, 0], [0.25, 0.25, 0.25], [0, 0.5, 0.5],
                     [0.25, 0.75, 0.75], [0.5, 0, 0.5], [0.75, 0.25, 0.75],
@@ -100,10 +110,20 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in events]))
 
 
-def bound(nbytes: float, flops: float):
-    """(bound_ms, bound_by): the larger of the bytes and operations times."""
+def bound(nbytes: float, flops: float, products: float = 0.0,
+          dtype: str = "float32"):
+    """(bound_ms, bound_by): the larger of the bytes and operations times.
+
+    `flops` are elementwise operations, at the f32 rate outside the tensor
+    cores.  `products` are the operations of matrix products, for which the
+    peak depends on the operands: bf16 x bf16 accumulated in f32 is exact
+    and runs on the tensor cores; f32 must stay at the f32 rate, since the
+    f32 tolerance rules out TF32.
+    """
+    rate = H100_BF16_FLOP_PER_S if dtype == "bfloat16" \
+        else H100_F32_FLOP_PER_S
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_F32_FLOP_PER_S * 1e3
+    t_ops = (flops / H100_F32_FLOP_PER_S + products / rate) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -301,6 +321,93 @@ def dense_kernel_phase(batch, failures: list):
     return results
 
 
+def fused_kernel_phase(batch, failures: list):
+    """K6/K7 against their plain versions at the dense shapes of `batch`:
+    its real edge mask folded into random sg and dg, de zero on its masked
+    pair rows (as in the model, which reads no masked row of e_new; there
+    the LayerNorm backward of a row near -1e9 depends on the summation
+    order).  e_new is compared on real pair rows."""
+    import torch
+
+    from alignn_tpu_torch.ops import dense as dk
+    from alignn_tpu_torch.ops import fused_lstage as fk
+
+    dev, D = batch.r.device, batch.dense_D
+    n, f = batch.z.shape[0], 256
+    rows, pairs = n * D, n * D * D
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+
+    real = batch.lg_mask > 0
+    z32, w = randn(pairs, f), randn(f, f, scale=0.0625)
+    b, sc, bi = randn(f, scale=0.1), 1.0 + randn(f, scale=0.1), \
+        randn(f, scale=0.1)
+    sg32 = dk.fold_mask(randn(rows, f), batch.edge_mask)
+    dg32 = dk.fold_mask(randn(rows, f), batch.edge_mask)
+    bh32, dh32 = randn(rows, f), randn(rows, f)
+    de32 = randn(pairs, f) * batch.lg_mask[:, None]
+    results = {"K6": {}, "K7": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        es = torch.tensor([], dtype=dtype).element_size()
+        z = z32.to(dtype)
+        args = (z, w, b, sg32.to(dtype), dg32.to(dtype), bh32.to(dtype), sc,
+                bi, D)
+        bargs = (*args[:-1], de32.to(dtype), dh32.to(dtype), D)
+        e_new, h = fk.fused_pair_lstage_cuda(*args)
+        ref_e, ref_h = fk.fused_pair_lstage_plain(*args)
+        torch.cuda.synchronize()
+        errs = {"e_new": compare(e_new[real], ref_e[real], name, failures,
+                                 "K6 fused_pair_lstage e_new"),
+                "h": compare(h, ref_h, name, failures,
+                             "K6 fused_pair_lstage h")}
+        if not bool(torch.isfinite(e_new.float()).all()):
+            failures.append(f"K6 [{name}]: e_new not finite")
+        del e_new, h, ref_e, ref_h
+        # K6 reads z, sg, dg, bh and W, writes e_new and h; operations: the
+        # product 2 L F^2, and per pair element b and the gates 3, sigmoid
+        # 4, the two sums 3, LayerNorm 7, SiLU 5, residual 1; per output
+        # row of h, add and divide
+        b_ms, b_by = bound((2 * pairs + 4 * rows + f) * f * es,
+                           23.0 * pairs * f + 2.0 * rows * f,
+                           2.0 * pairs * f * f, name)
+        results["K6"][name] = {
+            **max(errs.values(), key=lambda e: e["rel_err"]), **errs,
+            "ms": cuda_ms(lambda: fk.fused_pair_lstage_cuda(*args)),
+            "plain_ms": cuda_ms(lambda: fk.fused_pair_lstage_plain(*args)),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "gemm_only_ms": cuda_ms(lambda: torch.addmm(
+                b.to(dtype), z, w.to(dtype)))}
+        got = fk.fused_lstage_bwd_cuda(*bargs)
+        ref = fk.fused_lstage_bwd_plain(*bargs)
+        torch.cuda.synchronize()
+        parts = ("dz", "dw", "db", "dsg", "ddg", "dbh", "dscale", "dbias")
+        errs = {part: compare(x, r, name, failures, f"K7 fused_lstage_bwd "
+                              f"{part}")
+                for part, x, r in zip(parts, got, ref)}
+        if not all(bool(torch.isfinite(x.float()).all()) for x in got):
+            failures.append(f"K7 [{name}]: an output is not finite")
+        del got, ref
+        # K7 reads z, de, sg, dg, bh, dh and W, writes dz, dsg, ddg, dbh
+        # and dW (f32); operations: three products 6 L F^2, and about 55
+        # per pair element (the recomputed forward, the aggregation and
+        # LayerNorm backward, the sums of dm2), 5 per edge row
+        b_ms, b_by = bound((3 * pairs + 7 * rows + f) * f * es + 4 * f * f,
+                           55.0 * pairs * f + 5.0 * rows * f,
+                           6.0 * pairs * f * f, name)
+        results["K7"][name] = {
+            **max(errs.values(), key=lambda e: e["rel_err"]), **errs,
+            "ms": cuda_ms(lambda: fk.fused_lstage_bwd_cuda(*bargs)),
+            "plain_ms": cuda_ms(lambda: fk.fused_lstage_bwd_plain(*bargs)),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "gemm_only_ms": results["K6"][name]["gemm_only_ms"]}
+        del args, bargs, z
+        torch.cuda.empty_cache()
+    return results
+
+
 def dense_shape(batch) -> dict:
     """The dense kernels' operand shapes for `batch`."""
     D, n = batch.dense_D, batch.z.shape[0]
@@ -341,8 +448,9 @@ def breakdown(calc, atoms):
                                  ProfilerActivity.CUDA]) as prof:
             calc.calculate(atoms)
             torch.cuda.synchronize()
-    by_name, _n = device_ms_by_name(prof)
+    by_name, n_ops = device_ms_by_name(prof)
     stages["device_busy"] = sum(by_name.values())
+    stages["device_ops"] = n_ops
     return g, stages, top_kernels(by_name)
 
 
@@ -378,12 +486,15 @@ def launch_counters() -> dict:
     """{kernel id: its wrapper}; each wrapper counts its own launches."""
     from alignn_tpu_torch.ops import dense as dk
     from alignn_tpu_torch.ops import eggc as ek
+    from alignn_tpu_torch.ops import fused_lstage as fk
 
     return {"K1": ek.gated_aggregate_cuda, "K2": ek.sorted_segment_sum_cuda,
             "K3": dk.dense_gated_aggregate_cuda,
             "K4": dk.dense_pair_aggregate_cuda,
             "K5a": dk.pair_aggregate_bwd_cuda,
-            "K5b": dk.pair_aggregate_bwd2_cuda}
+            "K5b": dk.pair_aggregate_bwd2_cuda,
+            "K6": fk.fused_pair_lstage_cuda,
+            "K7": fk.fused_lstage_bwd_cuda}
 
 
 def reset_launches():
@@ -400,9 +511,20 @@ def si_cells():
             ("si512_rattled", rattled_supercell(4))]
 
 
-def run_cells(new_calc, cells, dense: bool, failures: list):
+# kernels each layout must launch, and must not, in a serving call and in
+# a train step (which adds K5b, the second order of K4)
+LAYOUT_KERNELS = {"sparse": (("K1", "K2"), ("K6", "K7")),
+                  "dense": (("K3", "K4", "K5a"), ("K1", "K6", "K7")),
+                  "fused": (("K3", "K6", "K7"), ("K1", "K4", "K5a"))}
+TRAIN_KERNELS = {"sparse": LAYOUT_KERNELS["sparse"],
+                 "dense": (("K3", "K4", "K5a", "K5b"), ("K1", "K6", "K7")),
+                 "fused": (("K3", "K6", "K7"), ("K1", "K4", "K5a", "K5b"))}
+
+
+def run_cells(new_calc, cells, layout: str, failures: list):
     """Drive a fresh Calculator per cell: 2 warm-up and 5 timed calls,
-    then the stage breakdown.  Returns [(row, atoms, result)]."""
+    then the stage breakdown.  `layout` is sparse, dense or fused (dense
+    with ALIGNN_TPU_FUSED_LSTAGE set).  Returns [(row, atoms, result)]."""
     import torch
 
     rows = []
@@ -425,7 +547,7 @@ def run_cells(new_calc, cells, dense: bool, failures: list):
         n = atoms.num_atoms
         forces = res["forces"]
         row = {
-            "cell": name, "layout": "dense" if dense else "sparse",
+            "cell": name, "layout": layout,
             "atoms": n, "edges": g.num_edges,
             "lg_edges": g.num_lg_edges,
             "bucket": list(vars(calc._spec).values()),
@@ -447,12 +569,10 @@ def run_cells(new_calc, cells, dense: bool, failures: list):
             failures.append(f"{name}: non-finite or misshaped output")
         if row["abs_sum_force"] > 1e-3:
             failures.append(f"{name}: |sum F| = {row['abs_sum_force']}")
-        if dense:
-            if calc._spec is None or calc._spec.dense_D == 0:
-                failures.append(f"{name}: the dense Calculator ran sparse")
-            need, banned = ("K3", "K4", "K5a"), ("K1",)
-        else:
-            need, banned = ("K1", "K2"), ()
+        if layout != "sparse" and (calc._spec is None
+                                   or calc._spec.dense_D == 0):
+            failures.append(f"{name}: the dense Calculator ran sparse")
+        need, banned = LAYOUT_KERNELS[layout]
         if any(per_call[k] <= 0 for k in need) or \
                 any(per_call[k] != 0 for k in banned):
             failures.append(f"{name}: launches per call {per_call} (need "
@@ -463,8 +583,14 @@ def run_cells(new_calc, cells, dense: bool, failures: list):
 
 def check_against(rows, ref_calc, label: str, failures: list):
     """E/F/S of each row's result against ``ref_calc`` within CPU_TOL."""
-    for row, atoms, res in rows:
-        ref = ref_calc().calculate(atoms)
+    check_results(rows, [ref_calc().calculate(atoms) for _r, atoms, _x in
+                         rows], label, failures)
+
+
+def check_results(rows, refs, label: str, failures: list):
+    """E/F/S of each row's result against the result `refs` holds for it,
+    within CPU_TOL."""
+    for (row, atoms, res), ref in zip(rows, refs):
         n = atoms.num_atoms
         diff = {
             "energy_per_atom": abs(res["energy"] - ref["energy"]) / n,
@@ -590,124 +716,151 @@ def step_diff(a, b, what: str, failures: list) -> dict:
             "grad_worst_share_of_limit": worst, "grad_worst": worst_name}
 
 
-def train_phase(failures: list):
-    """dense_rocksalt_b64 training: bench.py's E/F/S train step (4+4/256,
-    L1 loss, AdamW lr 1e-3 wd 1e-5, f32) on the 64 labelled rocksalt
-    cells, dense then sparse, from one seeded set of weights.  First
-    K3/K4/K5a/K5b against their plain versions at the dense batch's own
-    shapes; then per layout 2 warm-up and 10 timed steps, launches per
-    step, peak memory, one profiled step; the first step's losses and
-    gradients dense against sparse, and on the first 8 cells the card
-    against the port on the CPU.
-
-    Returns (row, launches per layout over its 12 steps, kernel results
-    at the training shapes, those shapes)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+def train_batches(gs, device):
     from alignn_tpu_torch.graph.batch import BucketSpec, batch_graphs
     from alignn_tpu_torch.graph.dense import (dense_batch_graphs,
                                               dense_spec_for_batch)
+
+    return {"dense": dense_batch_graphs(gs, dense_spec_for_batch(gs), device),
+            "sparse": batch_graphs(gs, BucketSpec.tight_for_batch(gs),
+                                   device)}
+
+
+def train_run(weights, batch, layout: str, failures: list, steps: int = 12,
+              warmup: int = 2):
+    """`steps` E/F/S train steps of a fresh model from `weights` on
+    `batch`, the first `warmup` untimed: ms per step, edges per second
+    over the timed window, launches per step, peak memory, one profiled
+    step.  Returns (row, first step's losses and gradients, launches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     from alignn_tpu_torch.nn.models import (ALIGNNAtomWise,
-                                            ALIGNNAtomWiseConfig,
-                                            init_parameters)
+                                            ALIGNNAtomWiseConfig)
     from alignn_tpu_torch.train.optim import build_optimizer
     from alignn_tpu_torch.train.state import (create_train_state,
                                               make_train_step)
 
+    model = ALIGNNAtomWise(ALIGNNAtomWiseConfig(**TRAIN_CFG))
+    model.load_state_dict(weights)
+    state = create_train_state(model, batch,
+                               build_optimizer("adamw", 1e-3, 1e-5))
+    step = make_train_step(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    trajectory, times, first = [], [], None
+    for i in range(steps):
+        t = time.perf_counter()
+        state, losses = step(state, batch)
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append((time.perf_counter() - t) * 1e3)
+        if i == 0:   # the step leaves its gradients in place
+            first = ({k: float(v) for k, v in losses.items()},
+                     {k: p.grad.detach().cpu()
+                      for k, p in model.named_parameters()})
+        trajectory.append(losses)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    trajectory = [{k: float(v) for k, v in ls.items()} for ls in trajectory]
+    for _ in range(2):   # the first pays the profiler's start-up
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(state, batch)
+            torch.cuda.synchronize()
+    by_name, n_device_ops = device_ms_by_name(prof)
+    busy = sum(by_name.values())
+    median_ms = float(np.median(times))
+    n_edges = int(batch.edge_mask.sum().item() + batch.lg_mask.sum().item())
+    row = {
+        "layout": layout, "bucket": [batch.z.shape[0], batch.r.shape[0],
+                                     batch.lg_mask.shape[0], batch.dense_D],
+        "ms_per_step": median_ms, "ms_steps": times,
+        "steps": f"{warmup} warm-up + {steps - warmup} timed",
+        "edges_per_step": n_edges,
+        # over the whole timed window, so a stall counts
+        "train_step_edges_per_s": len(times) * n_edges / (sum(times) / 1e3),
+        "launches_per_step": {k: v / steps for k, v in launches.items()},
+        "peak_memory_bytes": peak,
+        "device_busy_ms": busy, "device_busy_share": busy / median_ms,
+        "device_ops_per_step": n_device_ops,
+        "top_kernels_ms": top_kernels(by_name),
+        "losses": trajectory}
+    if not all(np.isfinite(v) for ls in trajectory for v in ls.values()):
+        failures.append(f"train {layout}: non-finite losses")
+    need, banned = TRAIN_KERNELS[layout]
+    if any(launches[k] <= 0 for k in need) or \
+            any(launches[k] != 0 for k in banned):
+        failures.append(f"train {layout}: launches {launches} (need {need}, "
+                        f"none of {banned})")
+    del state, model, prof
+    torch.cuda.empty_cache()
+    return row, first, {k: v / steps for k, v in launches.items()}
+
+
+def train_phase(weights, graphs, failures: list):
+    """dense_rocksalt_b64 training: bench.py's E/F/S train step (4+4/256,
+    L1 loss, AdamW lr 1e-3 wd 1e-5, f32) on the 64 labelled rocksalt
+    cells, dense then sparse, from one seeded set of weights.  First
+    K3/K4/K5a/K5b and K6/K7 against their plain versions at the dense
+    batch's own shapes; then per layout 2 warm-up and 10 timed steps,
+    launches per step, peak memory, one profiled step; the first step's
+    losses and gradients dense against sparse, and on the first 8 cells
+    the card against the port on the CPU.
+
+    Returns (row, launches per step per layout, kernel results at the
+    training shapes, those shapes, the dense first step)."""
+    import torch
+
     dev = torch.device("cuda")
-    graphs = rocksalt_b64()
-    weights = init_parameters(ALIGNNAtomWise(ALIGNNAtomWiseConfig(
-        **TRAIN_CFG)), torch.Generator().manual_seed(0)).state_dict()
-
-    def batches(gs, device):
-        return {"dense": dense_batch_graphs(gs, dense_spec_for_batch(gs),
-                                            device),
-                "sparse": batch_graphs(gs, BucketSpec.tight_for_batch(gs),
-                                       device)}
-
     rows, first, launch_runs = {}, {}, {}
-    for layout, batch in batches(graphs, dev).items():
+    for layout, batch in train_batches(graphs, dev).items():
         if layout == "dense":
             dshape = dense_shape(batch)
             kernels = dense_kernel_phase(batch, failures)
+            kernels.update(fused_kernel_phase(batch, failures))
             torch.cuda.empty_cache()
-        model = ALIGNNAtomWise(ALIGNNAtomWiseConfig(**TRAIN_CFG))
-        model.load_state_dict(weights)
-        state = create_train_state(model, batch,
-                                   build_optimizer("adamw", 1e-3, 1e-5))
-        step = make_train_step(model)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        trajectory, times = [], []
-        for i in range(12):
-            t = time.perf_counter()
-            state, losses = step(state, batch)
-            torch.cuda.synchronize()
-            if i >= 2:
-                times.append((time.perf_counter() - t) * 1e3)
-            if i == 0:   # the step leaves its gradients in place
-                first[layout] = (
-                    {k: float(v) for k, v in losses.items()},
-                    {k: p.grad.detach().cpu()
-                     for k, p in model.named_parameters()})
-            trajectory.append(losses)
-        launches = read_launches()
-        launch_runs[layout] = launches
-        peak = torch.cuda.max_memory_allocated()
-        trajectory = [{k: float(v) for k, v in ls.items()}
-                      for ls in trajectory]
-        for _ in range(2):   # the first pays the profiler's start-up
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                step(state, batch)
-                torch.cuda.synchronize()
-        by_name, n_device_ops = device_ms_by_name(prof)
-        busy = sum(by_name.values())
-        median_ms = float(np.median(times))
-        n_edges = int(batch.edge_mask.sum().item()
-                      + batch.lg_mask.sum().item())
-        rows[layout] = {
-            "layout": layout, "bucket": [batch.z.shape[0], batch.r.shape[0],
-                                         batch.lg_mask.shape[0],
-                                         batch.dense_D],
-            "ms_per_step": median_ms, "ms_steps": times,
-            "edges_per_step": n_edges,
-            # over the whole timed window, so a stall counts
-            "train_step_edges_per_s": len(times) * n_edges
-            / (sum(times) / 1e3),
-            "launches_per_step": {k: v / 12 for k, v in launches.items()},
-            "peak_memory_bytes": peak,
-            "device_busy_ms": busy, "device_busy_share": busy / median_ms,
-            "device_ops_per_step": n_device_ops,
-            "top_kernels_ms": top_kernels(by_name),
-            "losses": trajectory}
-        finite = all(np.isfinite(v) for ls in trajectory for v in ls.values())
-        if not finite:
-            failures.append(f"train {layout}: non-finite losses")
-        del state, model, batch, prof
-        torch.cuda.empty_cache()
-    dl = launch_runs["dense"]
-    if dl["K1"] != 0 or min(dl[k] for k in ("K3", "K4", "K5a", "K5b")) <= 0:
-        failures.append(f"train dense: launches {dl} (need K3, K4, K5a, "
-                        f"K5b; no K1)")
-    if launch_runs["sparse"]["K1"] <= 0 or launch_runs["sparse"]["K2"] <= 0:
-        failures.append(f"train sparse: launches {launch_runs['sparse']}")
+        rows[layout], first[layout], launch_runs[layout] = train_run(
+            weights, batch, layout, failures)
+        del batch
     checks = {"dense_vs_sparse": step_diff(first["dense"], first["sparse"],
                                            "dense vs sparse", failures)}
-    cpu_batches = batches(graphs[:8], torch.device("cpu"))
-    for layout, batch in batches(graphs[:8], dev).items():
+    cpu_batches = train_batches(graphs[:8], torch.device("cpu"))
+    for layout, batch in train_batches(graphs[:8], dev).items():
         checks[f"{layout}_8_vs_cpu_port"] = step_diff(
             first_step(weights, batch),
             first_step(weights, cpu_batches[layout]),
             f"{layout} 8 cells card vs CPU", failures)
     return {"cell": "dense_rocksalt_b64", "config": TRAIN_CFG,
             "optimizer": "adamw lr 1e-3 wd 1e-5, no decay mask",
-            "precision": "f32 (TF32 off)", "steps": "2 warm-up + 10 timed",
-            "tolerances": TRAIN_TOL, **checks,
-            "dense": rows["dense"], "sparse": rows["sparse"]}, \
-        launch_runs, kernels, dshape
+            "precision": "f32 (TF32 off)", "tolerances": TRAIN_TOL,
+            **checks, "dense": rows["dense"], "sparse": rows["sparse"]}, \
+        launch_runs, kernels, dshape, first["dense"]
+
+
+def fused_train_phase(weights, graphs, dense_first, failures: list):
+    """The dense train step with ALIGNN_TPU_FUSED_LSTAGE set (by the
+    caller) on dense_rocksalt_b64: 2 warm-up and 10 timed steps, the
+    first step's losses and gradients against the unfused dense step's,
+    and on the first 8 cells against the port's fused step on the CPU."""
+    import torch
+
+    dev = torch.device("cuda")
+    batch = train_batches(graphs, dev)["dense"]
+    row, first, launches = train_run(weights, batch, "fused", failures)
+    del batch
+    checks = {"fused_vs_dense": step_diff(first, dense_first,
+                                          "fused vs dense", failures),
+              "fused_8_vs_cpu_port": step_diff(
+                  first_step(weights, train_batches(graphs[:8],
+                                                    dev)["dense"]),
+                  first_step(weights, train_batches(
+                      graphs[:8], torch.device("cpu"))["dense"]),
+                  "fused 8 cells card vs CPU", failures)}
+    return {"cell": "dense_rocksalt_b64", "layout": "fused",
+            "precision": "f32 (TF32 off)", "tolerances": TRAIN_TOL, **checks,
+            "fused": row}, launches
 
 
 KERNELS = (  # id, name, source, replaces
@@ -723,7 +876,44 @@ KERNELS = (  # id, name, source, replaces
      "alignn_tpu/ops/pallas_dense.py:395"),
     ("K5b", "pair_aggregate_bwd2", "alignn_tpu_torch/csrc/dense.cu",
      "alignn_tpu/ops/pallas_dense.py:533"),
+    ("K6", "fused_pair_lstage", "alignn_tpu_torch/csrc/fused_lstage.cu",
+     "alignn_tpu/ops/pallas_fused_lstage.py:103"),
+    ("K7", "fused_lstage_bwd", "alignn_tpu_torch/csrc/fused_lstage.cu",
+     "alignn_tpu/ops/pallas_fused_lstage.py:294"),
 )
+DENSE_KERNELS = ("K3", "K4", "K5a", "K5b", "K6", "K7")
+FUSED_ENV = "ALIGNN_TPU_FUSED_LSTAGE"
+
+
+@contextlib.contextmanager
+def fused_lstage_env():
+    """ALIGNN_TPU_FUSED_LSTAGE=1 inside, restored after whatever happens."""
+    previous = os.environ.get(FUSED_ENV)
+    os.environ[FUSED_ENV] = "1"
+    try:
+        yield
+    finally:
+        if previous is None:
+            del os.environ[FUSED_ENV]
+        else:
+            os.environ[FUSED_ENV] = previous
+
+
+def fused_slice(new_dense_calc, drows, cpu_calc, failures: list):
+    """The dense Calculator with ALIGNN_TPU_FUSED_LSTAGE=1 on the three Si
+    cells (it must launch K6 and K7, and no K4, K5a or K1), E/F/S against
+    the unfused dense results `drows` of the same cells on the card and, at
+    8 and 64 atoms, against `cpu_calc()` (the port's fused path on the
+    CPU).  Returns (rows, launches over the three cells)."""
+    with fused_lstage_env():
+        # counts from 0 over the three cells
+        reset_launches()
+        frows = run_cells(new_dense_calc, si_cells(), "fused", failures)
+        launches = read_launches()
+        check_results(frows, [res for _r, _a, res in drows], "dense_on_card",
+                      failures)
+        check_against(frows[:2], cpu_calc, "cpu_port", failures)
+    return frows, launches
 
 
 def main() -> int:
@@ -779,6 +969,7 @@ def main() -> int:
     else:
         dshape = dense_shape(dbatch)
         kernels.update(dense_kernel_phase(dbatch, failures))
+        kernels.update(fused_kernel_phase(dbatch, failures))
     del dbatch
     torch.cuda.empty_cache()
 
@@ -786,7 +977,7 @@ def main() -> int:
 
     # sparse slice: counts from 0 over its three cells
     reset_launches()
-    rows = run_cells(new_calc, si_cells(), False, failures)
+    rows = run_cells(new_calc, si_cells(), "sparse", failures)
     sparse_launches = read_launches()
     check_against(rows[:2], lambda: cpu_base, "cpu_port", failures)
     for row, _a, _r in rows:
@@ -794,7 +985,7 @@ def main() -> int:
 
     # dense slice: counts from 0 over its three cells
     reset_launches()
-    drows = run_cells(new_dense_calc, si_cells(), True, failures)
+    drows = run_cells(new_dense_calc, si_cells(), "dense", failures)
     dense_launches = read_launches()
     check_against(drows, new_canon_sparse_calc, "sparse_on_card", failures)
     check_against(drows[:2], lambda: Calculator(
@@ -802,27 +993,49 @@ def main() -> int:
         "cpu_port", failures)
     for row, _a, _r in drows:
         emit({"phase": "dense_slice", **row})
+
+    # fused dense slice (ALIGNN_TPU_FUSED_LSTAGE=1): counts from 0 over its
+    # three cells
+    frows, fused_launches = fused_slice(
+        new_dense_calc, drows, lambda: Calculator(
+            model=cpu_base.model, config=canon, dense=True, device="cpu"),
+        failures)
+    for row, _a, _r in frows:
+        emit({"phase": "fused_slice", **row})
     emit({"phase": "batch", **batch_phase(base.model, failures)})
     torch.cuda.empty_cache()
 
     # training: counts from 0 over each layout's 12 steps
-    train_row, train_launches, train_kernels, train_shape = \
-        train_phase(failures)
+    from alignn_tpu_torch.nn.models import (ALIGNNAtomWise,
+                                            ALIGNNAtomWiseConfig,
+                                            init_parameters)
+
+    graphs = rocksalt_b64()
+    weights = init_parameters(ALIGNNAtomWise(ALIGNNAtomWiseConfig(
+        **TRAIN_CFG)), torch.Generator().manual_seed(0)).state_dict()
+    train_row, train_launches, train_kernels, train_shape, dense_first = \
+        train_phase(weights, graphs, failures)
     emit({"phase": "train", **train_row})
+    with fused_lstage_env():
+        fused_row, train_launches["fused"] = fused_train_phase(
+            weights, graphs, dense_first, failures)
+    emit({"phase": "fused_train", **fused_row})
 
     line = []
     for key, name, source, replaces in KERNELS:
         r = kernels.get(key)
         if r is None:
             continue
-        dense = key in ("K3", "K4", "K5a", "K5b")
+        dense = key in DENSE_KERNELS
         # K5b runs only in training: its count, numbers and shape are the
-        # dense train step's; the other dense kernels' are the si512 cell's
+        # dense train step's; the other dense kernels' are the si512 cell's,
+        # K6's and K7's counts those of the fused slice
         if key == "K5b":
             r, launches, kshape = train_kernels[key], \
-                train_launches["dense"], train_shape
+                {key: train_launches["dense"][key] * 12}, train_shape
         else:
-            launches = dense_launches if dense else sparse_launches
+            launches = fused_launches if key in ("K6", "K7") else \
+                dense_launches if dense else sparse_launches
             kshape = dshape if dense else shape
         f32 = r["float32"]
         line.append({
@@ -830,14 +1043,16 @@ def main() -> int:
             "replaces": replaces,
             "launches": launches[key],
             "launches_per_train_step": {
-                layout: train_launches[layout][key] / 12
-                for layout in ("dense", "sparse")},
+                layout: per_step[key]
+                for layout, per_step in train_launches.items()},
             "max_abs_err": f32["max_abs_err"], "rel_err": f32["rel_err"],
             "tol_rel": f32["tol_rel"],
             "ms": f32["ms"], "kernel_ms": f32["ms"],
             "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
             "bound_by": f32["bound_by"],
             "library_ms": f32.get("library_ms"),
+            **({"gemm_only_ms": f32["gemm_only_ms"]}
+               if "gemm_only_ms" in f32 else {}),
             "shape": kshape,
             "bfloat16": r["bfloat16"],
             **({"at_shape": {"si512_rattled": {"shape": dshape,

@@ -1,8 +1,8 @@
 """alignn_tpu_torch on the card: CUDA kernels against their plain versions.
 
-K1/K2 (``csrc/eggc.cu``) and K3/K4/K5a/K5b (``csrc/dense.cu``), then the
-Calculator and the E/F/S train step on the card against the port on the
-CPU, sparse and dense.
+K1/K2 (``csrc/eggc.cu``), K3/K4/K5a/K5b (``csrc/dense.cu``) and K6/K7
+(``csrc/fused_lstage.cu``), then the Calculator and the E/F/S train step
+on the card against the port on the CPU, sparse, dense and fused dense.
 
 Every test here is marked ``cuda`` and skips on a host without a GPU.
 This file imports torch and numpy only (the card's host has no JAX), so
@@ -19,6 +19,7 @@ import torch
 
 from alignn_tpu_torch.ops import dense as dk
 from alignn_tpu_torch.ops import eggc as ek
+from alignn_tpu_torch.ops import fused_lstage as fk
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 pytestmark = pytest.mark.cuda
@@ -186,19 +187,27 @@ def test_dense_kernels_match_plain(cuda, n, D, f, dtype, strided):
 
 
 @pytest.mark.parametrize("kernel,D", [("K4", 460), ("K5a", 160),
-                                      ("K5b", 80)])
+                                      ("K5b", 80), ("K6", 65), ("K7", 65)])
 def test_pair_kernels_refuse_a_block_too_large(cuda, kernel, D):
     """K4 stages one [D, 128] f32 plane, K5a three, K5b six: past 232,448
-    bytes dense.cu refuses the launch and the wrapper raises ValueError."""
+    bytes dense.cu refuses the launch.  K6 and K7 refuse a t-group of more
+    than 64 pair rows (their m2 tile).  The wrappers raise ValueError."""
     bh = torch.zeros(D, 128, device=cuda)
     pairs = torch.zeros(D * D, 128, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
+    w, v = torch.zeros(128, 128, device=cuda), torch.zeros(128, device=cuda)
+    reason = "64-row tile" if kernel in ("K6", "K7") else "shared memory"
+    with pytest.raises(ValueError, match=reason):
         if kernel == "K4":
             dk.dense_pair_aggregate_cuda(pairs, bh, D)
         elif kernel == "K5a":
             dk.pair_aggregate_bwd_cuda(pairs, bh, bh, D)
-        else:
+        elif kernel == "K5b":
             dk.pair_aggregate_bwd2_cuda(pairs, bh, bh, pairs, bh, D)
+        elif kernel == "K6":
+            fk.fused_pair_lstage_cuda(pairs, w, v, bh, bh, bh, v, v, D)
+        else:
+            fk.fused_lstage_bwd_cuda(pairs, w, v, bh, bh, bh, v, v, pairs,
+                                     bh, D)
 
 
 def test_dense_autograd_runs_the_kernels(cuda):
@@ -300,3 +309,130 @@ def test_train_step_cuda_matches_cpu(cuda, dense):
     for name, ref in gc.items():
         diff = float((gg[name] - ref).abs().max())
         assert diff <= 1e-3 * float(ref.abs().max()) + 1e-7, (name, diff)
+
+
+FUSED_CASES = [  # (nodes, D, F, dtype, strided input)
+    (64, 4, 256, torch.float32, False),
+    (40, 13, 256, torch.float32, True),      # row stride 2F
+    (30, 18, 256, torch.bfloat16, False),
+    (24, 13, 128, torch.bfloat16, True),
+    (20, 18, 128, torch.float32, False),
+    (16, 4, 256, torch.bfloat16, True),
+]
+
+
+def _fused_operands(rng, n, D, f, dtype, strided, device):
+    """(z, w, b, sg_f, dg_f, bh, scale, bias), de, dh and the pair mask: node
+    0 empty, the edge mask folded into sg_f and dg_f, de 0 on masked pair
+    rows (as in the model: nothing reads those rows of e_new)."""
+    em = (rng.random(n * D) < 0.8).astype(np.float32)
+    em[:D] = 0.0
+    em_t = torch.tensor(em, device=device)
+    lg = (em_t.reshape(n, 1, D) * em_t.reshape(n, D, 1)).reshape(-1)
+
+    def vec(scale, offset=0.0):
+        return torch.tensor(offset + scale * rng.standard_normal(f),
+                            dtype=torch.float32, device=device)
+
+    z = _table(rng, n * D * D, f, dtype, strided, device)
+    w = torch.tensor(0.05 * rng.standard_normal((f, f)), dtype=torch.float32,
+                     device=device)
+    sg = dk.fold_mask(_table(rng, n * D, f, dtype, strided, device), em_t)
+    dg = dk.fold_mask(_table(rng, n * D, f, dtype, strided, device), em_t)
+    bh = _table(rng, n * D, f, dtype, strided, device)
+    de = _table(rng, n * D * D, f, dtype, strided, device) * \
+        lg.to(dtype)[:, None]
+    dh = _table(rng, n * D, f, dtype, strided, device)
+    return (z, w, vec(0.1), sg, dg, bh, vec(0.1, 1.0), vec(0.1)), de, dh, lg
+
+
+@pytest.mark.parametrize("n,D,f,dtype,strided", FUSED_CASES)
+def test_fused_kernels_match_plain(cuda, n, D, f, dtype, strided):
+    """K6 (h; e_new on real pair rows) and K7 (all eight outputs) against
+    their plain versions: f32 1e-5, bf16 1e-2, times max|plain|.  Masked
+    rows finite; one launch each."""
+    rng = np.random.default_rng(10)
+    args, de, dh, lg = _fused_operands(rng, n, D, f, dtype, strided, cuda)
+    before = (fk.fused_pair_lstage_cuda.launches,
+              fk.fused_lstage_bwd_cuda.launches)
+    e_new, h = fk.fused_pair_lstage_cuda(*args, D)
+    grads = fk.fused_lstage_bwd_cuda(*args, de, dh, D)
+    torch.cuda.synchronize()
+    assert (fk.fused_pair_lstage_cuda.launches,
+            fk.fused_lstage_bwd_cuda.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    ref_e, ref_h = fk.fused_pair_lstage_plain(*args, D)
+    real = lg > 0
+    _close_rel(e_new[real], ref_e[real], dtype)
+    _close_rel(h, ref_h, dtype)
+    assert torch.isfinite(e_new.float()).all()
+    assert torch.all(h[:D] == 0)                    # the empty node
+    refs = fk.fused_lstage_bwd_plain(*args, de, dh, D)
+    for out, ref in zip(grads, refs):
+        assert out.dtype == ref.dtype
+        tol = 1e-5 if dtype == torch.float32 else 1e-2
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err <= tol * ref.float().abs().max().item(), err
+        assert torch.isfinite(out.float()).all()
+
+
+def test_fused_autograd_runs_the_kernels(cuda):
+    """Through fused_pair_lstage: the forward launches K6, the first
+    backward K7, and the grad-of-grad (autograd of K7's plain version)
+    matches autograd through the plain forward: rtol 1e-4, atol 1e-5 x
+    max|ref|.  The grad-of-grad launches K7 once more: the first
+    backward's cotangent de depends on e_new, whose VJP is K7."""
+    rng = np.random.default_rng(11)
+    args, _de, _dh, lg = _fused_operands(rng, 24, 13, 256, torch.float32,
+                                         False, cuda)
+    mask = lg[:, None]
+    outs = []
+    for fn in (fk.fused_pair_lstage, fk.fused_pair_lstage_plain):
+        ts = [a.detach().clone().requires_grad_(True) for a in args]
+        k = (fk.fused_pair_lstage_cuda.launches,
+             fk.fused_lstage_bwd_cuda.launches)
+        e, h = fn(*ts, 13)
+        (gz,) = torch.autograd.grad(((e * mask) ** 2).sum() + (h ** 2).sum(),
+                                    ts[0], create_graph=True)
+        g2 = torch.autograd.grad((gz ** 2).sum(), (ts[1], ts[3], ts[5]))
+        outs.append((gz, *g2))
+        launches = (fk.fused_pair_lstage_cuda.launches - k[0],
+                    fk.fused_lstage_bwd_cuda.launches - k[1])
+        assert launches == ((1, 2) if fn is fk.fused_pair_lstage else (0, 0))
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-5 * float(b.abs().max()))
+
+
+def test_fused_dense_calculator_cuda_matches_cpu(cuda, monkeypatch):
+    """ALIGNN_TPU_FUSED_LSTAGE=1, use_canonize: true Si diamond: 4 K6 and 4
+    K7 launches per call, no K4, K5a or K1; E/F/S against the CPU port's
+    fused path at the Calculator's limits."""
+    from alignn_tpu_torch.chem.atoms import Atoms
+    from alignn_tpu_torch.ff.calculator import Calculator
+
+    monkeypatch.setenv("ALIGNN_TPU_FUSED_LSTAGE", "1")
+    path = os.path.join(REPO, "docs", "mlearn_r4", "Si")
+    frac = np.array([[0, 0, 0], [0.25, 0.25, 0.25], [0, 0.5, 0.5],
+                     [0.25, 0.75, 0.75], [0.5, 0, 0.5], [0.75, 0.25, 0.75],
+                     [0.5, 0.5, 0], [0.75, 0.75, 0.25]])
+    frac = frac + np.random.default_rng(0).normal(0, 0.01, frac.shape)
+    atoms = Atoms(lattice_mat=np.eye(3) * 5.43, frac_coords=frac,
+                  elements=["Si"] * 8)
+    counters = (ek.gated_aggregate_cuda, dk.dense_pair_aggregate_cuda,
+                dk.pair_aggregate_bwd_cuda, fk.fused_pair_lstage_cuda,
+                fk.fused_lstage_bwd_cuda)
+    base = Calculator(path=path)
+    config = {**base.config, "use_canonize": True}
+    calc = Calculator(model=base.model, config=config, dense=True)
+    before = [c.launches for c in counters]
+    gpu = calc.calculate(atoms)
+    assert calc._spec.dense_D > 0
+    assert [c.launches - b for c, b in zip(counters, before)] == \
+        [0, 0, 0, 4, 4]
+    cpu_base = Calculator(path=path, device="cpu")
+    cpu = Calculator(model=cpu_base.model, config=config, dense=True,
+                     device="cpu").calculate(atoms)
+    assert abs(gpu["energy"] - cpu["energy"]) / 8 < 1e-4
+    np.testing.assert_allclose(gpu["forces"], cpu["forces"], atol=5e-4)
+    np.testing.assert_allclose(gpu["stress"], cpu["stress"], atol=1e-5)
