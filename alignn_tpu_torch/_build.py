@@ -19,6 +19,8 @@ import threading
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "alignn_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -27,6 +29,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}   # source stem -> nvcc/ptxas output
+
+
+def _raise_on(rc: int, name: str):
+    """Raise on the cudaError code a C entry point returned."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+
+
+def _stream(x: torch.Tensor) -> int:
+    """The current CUDA stream of x's device, as a C pointer."""
+    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def _nvcc() -> str:

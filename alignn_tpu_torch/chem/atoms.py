@@ -60,6 +60,17 @@ class Atoms:
             self.frac_coords, dtype=np.float64).reshape(-1, 3)
         self.elements = list(self.elements)
 
+    @classmethod
+    def from_dict(cls, d: dict) -> "Atoms":
+        """From a jarvis-schema dict (``lattice_mat``, ``coords``,
+        ``elements``, ``cartesian``): the records of a dataset."""
+        lattice = np.asarray(d["lattice_mat"], dtype=np.float64).reshape(3, 3)
+        coords = np.asarray(d["coords"], dtype=np.float64).reshape(-1, 3)
+        if d.get("cartesian", False):
+            coords = coords @ np.linalg.inv(lattice)
+        return cls(lattice_mat=lattice, frac_coords=coords,
+                   elements=d["elements"])
+
     @property
     def lattice(self) -> Lattice:
         return Lattice(self.lattice_mat)

@@ -240,8 +240,11 @@ class Calculator:
                     # invariants and propagate.
                     self._warn_once(f"dense layout unavailable for this "
                                     f"structure ({exc})")
+        # no gather windows: an evolving structure's index spans move from
+        # step to step (JAX's Calculator passes gather_windows=False too)
         return batch_graphs([g], self.bucket_for(g), self.device,
-                            atom_features=self.atom_features)
+                            atom_features=self.atom_features,
+                            gather_windows=False)
 
     # -- calculation --------------------------------------------------------
 

@@ -14,9 +14,11 @@ Because dst and lg_dst are ascending (trash slots last), each message
 passing stage is a set of contiguous segments.  Their CSR pointers, and
 those of the argsorted src / lg_src, are built once here
 (:class:`~alignn_tpu_torch.ops.eggc.Segments`) and read by every layer.
-Gather windows of the JAX package are not ported: the Calculator
-batches without them.  The dense-neighbourhood layout fills the same
-:class:`GraphBatch` (:mod:`alignn_tpu_torch.graph.dense`).
+So are the static gather windows (``win_*``, :mod:`alignn_tpu_torch.ops.
+gather`), measured on the numpy index arrays when ``gather_windows`` is
+set; the Calculator batches without them, as in JAX.  The
+dense-neighbourhood layout fills the same :class:`GraphBatch`
+(:mod:`alignn_tpu_torch.graph.dense`) and leaves the windows at 0.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 from alignn_tpu_torch.chem.features import attribute_lookup_table
 from alignn_tpu_torch.graph.build import GraphData
 from alignn_tpu_torch.ops.eggc import Segments
+from alignn_tpu_torch.ops.gather import window_for
 
 
 @dataclass(frozen=True)
@@ -86,6 +89,19 @@ class GraphBatch:
     # the reverse-edge involution [E] int64
     dense_D: int = 0
     rev: Optional[torch.Tensor] = None
+    # static gather windows (ops/gather.py): the max per-supertile span of
+    # real indices, 256-quantised; 0 = plain gather.  The model reads them
+    # only with ALIGNN_TPU_ENABLE_WGATHER set.
+    win_src: int = 0
+    win_dst: int = 0
+    win_src_sorted: int = 0
+    win_lg_src: int = 0
+    win_lg_dst: int = 0
+    win_lg_src_sorted: int = 0
+
+
+WIN_FIELDS = ("win_src", "win_dst", "win_src_sorted", "win_lg_src",
+              "win_lg_dst", "win_lg_src_sorted")
 
 
 @dataclass(frozen=True)
@@ -98,6 +114,26 @@ class BucketSpec:
     n_lg_edges: int
     n_graphs: int
     dense_D: int = 0
+
+    @staticmethod
+    def for_graphs(graphs: Sequence[GraphData], batch_size: int,
+                   node_quantum: int = 128, edge_quantum: int = 128,
+                   lg_quantum: int = 512, slack: float = 1.0) -> "BucketSpec":
+        """One bucket for every batch of `batch_size` graphs: the largest
+        graph's counts x batch_size x slack, rounded up to the quanta,
+        plus the trash slots."""
+        max_n = max(g.num_nodes for g in graphs)
+        max_e = max(g.num_edges for g in graphs)
+        max_l = max(g.num_lg_edges for g in graphs)
+        return BucketSpec(
+            n_nodes=_round_up(int(max_n * batch_size * slack) + 1,
+                              node_quantum),
+            n_edges=_round_up(int(max_e * batch_size * slack) + 1,
+                              edge_quantum),
+            n_lg_edges=_round_up(int(max_l * batch_size * slack) + 1,
+                                 lg_quantum),
+            n_graphs=batch_size + 1,
+        )
 
     @staticmethod
     def tight_for_batch(graphs: Sequence[GraphData], node_quantum: int = 128,
@@ -120,12 +156,15 @@ def _round_up(x: int, quantum: int) -> int:
 
 
 def _incidence(src: np.ndarray, dst: Optional[np.ndarray], num_dst: int,
-               num_src: int, device: torch.device) -> Incidence:
-    """The stage's index tensors; `dst` None leaves its segments out."""
+               num_src: int, device: torch.device,
+               perm: Optional[np.ndarray] = None) -> Incidence:
+    """The stage's index tensors; `dst` None leaves its segments out.
+    `perm`, the stable argsort of `src`, is computed when not given."""
     if dst is not None and np.any(np.diff(dst) < 0):
         raise ValueError("dst must be ascending: the segment kernels "
                          "reduce contiguous row ranges")
-    perm = np.argsort(src, kind="stable")
+    if perm is None:
+        perm = np.argsort(src, kind="stable")
     inv = np.empty_like(perm)
     inv[perm] = np.arange(perm.shape[0])
 
@@ -183,10 +222,14 @@ def padded_labels(graphs: Sequence[GraphData], n_pad: int, g_pad: int,
 def batch_graphs(graphs: List[GraphData], spec: BucketSpec,
                  device: torch.device, atom_features: str = "cgcnn",
                  dtype: torch.dtype = torch.float32, target_width: int = 1,
-                 atomwise_width: int = 0,
-                 additional_width: int = 0) -> GraphBatch:
+                 atomwise_width: int = 0, additional_width: int = 0,
+                 gather_windows: bool = True) -> GraphBatch:
     """Concatenate + pad graphs into one :class:`GraphBatch` on `device`,
-    with their training targets (:func:`padded_labels`)."""
+    with their training targets (:func:`padded_labels`).
+
+    `gather_windows` measures the six static ``win_*`` windows on the
+    index arrays (False leaves them 0): geometry-evolving single-graph
+    callers such as the Calculator skip it, as in JAX."""
     n_pad, e_pad = spec.n_nodes, spec.n_edges
     l_pad, g_pad = spec.n_lg_edges, spec.n_graphs
     n_tot = sum(g.num_nodes for g in graphs)
@@ -252,6 +295,17 @@ def batch_graphs(graphs: List[GraphData], spec: BucketSpec,
     def i(a):
         return torch.as_tensor(a).to(device)
 
+    perm = np.argsort(src, kind="stable")
+    lg_perm = np.argsort(lg_src, kind="stable")
+    windows = {}
+    if gather_windows:
+        windows = dict(
+            win_src=window_for(src, n_pad - 1),
+            win_dst=window_for(dst, n_pad - 1),
+            win_src_sorted=window_for(src[perm], n_pad - 1),
+            win_lg_src=window_for(lg_src, e_pad - 1),
+            win_lg_dst=window_for(lg_dst, e_pad - 1),
+            win_lg_src_sorted=window_for(lg_src[lg_perm], e_pad - 1))
     return GraphBatch(
         z=i(z), atom_features=f(feat_table[z]), frac_coords=f(frac),
         node_graph=i(node_graph), node_mask=f(node_mask),
@@ -263,6 +317,7 @@ def batch_graphs(graphs: List[GraphData], spec: BucketSpec,
         **{k: f(v) for k, v in padded_labels(
             graphs, n_pad, g_pad, target_width, atomwise_width,
             additional_width).items()},
-        g_index=_incidence(src, dst, n_pad, n_pad, device),
-        lg_index=_incidence(lg_src, lg_dst, e_pad, e_pad, device),
+        g_index=_incidence(src, dst, n_pad, n_pad, device, perm),
+        lg_index=_incidence(lg_src, lg_dst, e_pad, e_pad, device, lg_perm),
+        **windows,
     )

@@ -59,6 +59,29 @@ def dense_spec_for_batch(graphs: Sequence[GraphData],
     return _dense_spec(n_pad, D, len(graphs) + 1)
 
 
+def dense_spec_for_graphs(graphs: Sequence[GraphData], batch_size: int,
+                          D: Optional[int] = None, node_quantum: int = 128,
+                          slack: float = 1.0) -> BucketSpec:
+    """One dense bucket for every batch of `batch_size` graphs: the
+    largest graph's nodes x batch_size x slack, D the largest in-degree."""
+    if D is None:
+        D = max_in_degree(graphs)
+    max_n = max(g.num_nodes for g in graphs)
+    n_pad = _round_up(int(max_n * batch_size * slack), node_quantum)
+    return _dense_spec(n_pad, D, batch_size + 1)
+
+
+def dense_spec_from_counts(node_counts, indeg_counts, batch_size: int,
+                           node_quantum: int = 128,
+                           slack: float = 1.0) -> BucketSpec:
+    """:func:`dense_spec_for_graphs` from per-graph node counts and
+    in-degrees (a dataset's metadata), without the graphs."""
+    D = int(np.max(indeg_counts))
+    max_n = int(np.max(node_counts))
+    n_pad = _round_up(int(max_n * batch_size * slack), node_quantum)
+    return _dense_spec(n_pad, D, batch_size + 1)
+
+
 def dense_spec_with_slack(g: GraphData, bucket_slack: float = 1.3,
                           degree_headroom: int = 2,
                           node_quantum: int = 128) -> BucketSpec:

@@ -10,7 +10,7 @@ one state dict drives both layouts.
 from __future__ import annotations
 
 import os
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -97,7 +97,9 @@ class EdgeGatedGraphConv(nn.Module):
     ("dst_update" acts on source features: the reference's naming.)  The
     src-side gathers ride one concatenated gather whose transpose is a
     sorted segment sum (K2); the dst-side gather transposes into K2
-    directly; the aggregation is K1.
+    directly; the aggregation is K1.  ``windows`` = (src, dst, src_sorted)
+    are the stage's static gather windows (0 = plain gather): with them the
+    gathers, at every derivative order, run the windowed gather K8.
 
     With a :class:`DenseWiring` the node stage runs on the dense layout
     (aggregation K3), and :meth:`pair_stage` is the dense L-stage (K4), or
@@ -114,17 +116,23 @@ class EdgeGatedGraphConv(nn.Module):
         self.norm_edges = MaskedLayerNorm(features)
 
     def forward(self, x: torch.Tensor, e: torch.Tensor, g: Incidence,
-                dense: Optional[DenseWiring] = None):
+                dense: Optional[DenseWiring] = None,
+                windows: Tuple[int, int, int] = (0, 0, 0)):
         if dense is not None:
             return self._dense_node_stage(x, e, g, dense)
         f = self.features
+        w_src, w_dst, w_src_sorted = windows
         cat_e = gather_nodes(
             torch.cat([self.src_gate(x), self.dst_update(x)], dim=-1),
-            g.src, g.src_perm, g.src_perm_inv, g.src_sorted)
+            g.src, g.src_perm, g.src_perm_inv, g.src_sorted, w_src,
+            w_src_sorted)
         sg_e, bh_e = cat_e[:, :f], cat_e[:, f:]
-        dg_e = sorted_gather(self.dst_gate(x), g.dst)
+        dg_e = sorted_gather(self.dst_gate(x), g.dst, w_dst)
         m = sg_e + dg_e + self.edge_gate(e)
-        h = gated_aggregate(m, bh_e, g.dst)
+        # JAX's aggregation keeps its window only where its kernel runs
+        # (edge_gated_aggregate_pallas: 128-row node tiles, F % 128 == 0)
+        w_agg = w_dst if f % 128 == 0 and x.shape[0] % 128 == 0 else 0
+        h = gated_aggregate(m, bh_e, g.dst, w_agg)
         x_new = x + F.silu(self.norm_nodes(self.src_update(x) + h))
         e_new = e + F.silu(self.norm_edges(m))
         return x_new, e_new
@@ -208,13 +216,15 @@ class ALIGNNConv(nn.Module):
         self.edge_update = EdgeGatedGraphConv(features)
 
     def forward(self, x, y, z, g: Incidence, lg: Optional[Incidence],
-                dense: Optional[DenseWiring] = None):
+                dense: Optional[DenseWiring] = None,
+                windows: Tuple[int, int, int] = (0, 0, 0),
+                lg_windows: Tuple[int, int, int] = (0, 0, 0)):
         if dense is not None:
             # the dense L-stage is local pairs wired by rev: it reads no
             # line-graph index arrays
             x, m = self.node_update(x, y, g, dense)
             y, z = self.edge_update.pair_stage(m, z, dense)
             return x, y, z
-        x, m = self.node_update(x, y, g)
-        y, z = self.edge_update(m, z, lg)
+        x, m = self.node_update(x, y, g, windows=windows)
+        y, z = self.edge_update(m, z, lg, windows=lg_windows)
         return x, y, z

@@ -24,6 +24,7 @@ from alignn_tpu_torch.nn.layers import (ALIGNNConv, Dense, DenseWiring,
 from alignn_tpu_torch.ops.basis import (bond_cosines, bond_cosines_dense,
                                         cutoff_function_based_edges)
 from alignn_tpu_torch.ops.eggc import permute_rows
+from alignn_tpu_torch.ops.gather import windows_enabled
 from alignn_tpu_torch.ops.segment import graph_readout_mean, segment_sum
 
 EV_A3_TO_GPA = 160.21766208  # 1 eV/Angstrom^3 in GPa
@@ -134,12 +135,20 @@ class _Trunk(nn.Module):
     def forward(self, batch: GraphBatch, x, y, z):
         dense = DenseWiring(batch.dense_D, batch.edge_mask, batch.lg_mask,
                             batch.rev) if batch.dense_D else None
+        # the batch's static gather windows, read with the switch as JAX
+        # reads it (a dense batch's are 0)
+        if windows_enabled():
+            wins = (batch.win_src, batch.win_dst, batch.win_src_sorted)
+            lg_wins = (batch.win_lg_src, batch.win_lg_dst,
+                       batch.win_lg_src_sorted)
+        else:
+            wins = lg_wins = (0, 0, 0)
         for i in range(self.alignn_layers):
             x, y, z = getattr(self, f"alignn_layers_{i}")(
-                x, y, z, batch.g_index, batch.lg_index, dense)
+                x, y, z, batch.g_index, batch.lg_index, dense, wins, lg_wins)
         for i in range(self.gcn_layers):
             x, y = getattr(self, f"gcn_layers_{i}")(x, y, batch.g_index,
-                                                     dense)
+                                                     dense, wins)
         return x, y
 
 

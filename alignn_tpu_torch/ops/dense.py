@@ -52,8 +52,8 @@ import ctypes
 import torch
 
 from alignn_tpu_torch import _build
-from alignn_tpu_torch.ops.eggc import (_DTYPE_CODE, _dispatch, _raise_on,
-                                       _unit_stride)
+from alignn_tpu_torch._build import _raise_on, _stream
+from alignn_tpu_torch.ops.eggc import _DTYPE_CODE, _dispatch, _unit_stride
 
 EPS = 1e-6
 MASK_SHIFT = 1e9   # additive logit shift of a masked slot
@@ -215,10 +215,6 @@ def _blocks(name: str, x: torch.Tensor, D: int) -> int:
         raise ValueError(f"{name}: rows of {tuple(x.shape)} must be a "
                          f"multiple of D = {D}")
     return x.shape[0] // D
-
-
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def dense_gated_aggregate_cuda(m: torch.Tensor, bh: torch.Tensor,

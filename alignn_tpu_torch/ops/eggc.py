@@ -15,6 +15,10 @@ over dst-sorted edges, so a segment is the contiguous row range
   dst-side gather transposes into K2.  ``gather_nodes`` sends the
   transpose of the unsorted src / lg_src gathers through K2 by the
   precomputed argsort permutation (``permute_rows``).
+- Each gather and segment sum takes the static gather window of its
+  index array (``window``, 0 = none), carried into every VJP as JAX
+  carries it: with a usable window the forward gathers run the windowed
+  gather K8 (:mod:`alignn_tpu_torch.ops.gather`), trash rows reading 0.
 
 Dispatch rule of every wrapper: a tensor on the CPU takes the plain
 PyTorch version (``*_plain``); a CUDA tensor launches the kernel or
@@ -29,6 +33,8 @@ from dataclasses import dataclass
 import torch
 
 from alignn_tpu_torch import _build
+from alignn_tpu_torch._build import _raise_on, _stream
+from alignn_tpu_torch.ops.gather import windowed_gather
 from alignn_tpu_torch.ops.segment import edge_gated_aggregate, segment_sum
 
 EPS = 1e-6
@@ -145,11 +151,6 @@ def _check_rows(name: str, x: torch.Tensor, seg: Segments):
                              f"contiguous int32 tensors on {x.device}")
 
 
-def _raise_on(rc: int, name: str):
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
-
-
 def gated_aggregate_cuda(m: torch.Tensor, bh: torch.Tensor,
                          seg: Segments) -> torch.Tensor:
     """K1 on the card: out [num, F] in m's dtype, f32 accumulation."""
@@ -164,12 +165,11 @@ def gated_aggregate_cuda(m: torch.Tensor, bh: torch.Tensor,
         partial = torch.empty((2, seg.num_items, f), dtype=torch.float32,
                               device=m.device)
         with torch.cuda.device(m.device):
-            stream = torch.cuda.current_stream(m.device).cuda_stream
             rc = _lib().alignn_eggc_gated_aggregate(
                 m.data_ptr(), m.stride(0), bh.data_ptr(), bh.stride(0),
                 seg.item_rows.data_ptr(), seg.num_items,
                 seg.item_ptr.data_ptr(), partial.data_ptr(), out.data_ptr(),
-                seg.num, f, _DTYPE_CODE[m.dtype], stream)
+                seg.num, f, _DTYPE_CODE[m.dtype], _stream(m))
         _raise_on(rc, "gated_aggregate")
         gated_aggregate_cuda.launches += 1
     return out
@@ -187,11 +187,10 @@ def sorted_segment_sum_cuda(x: torch.Tensor, seg: Segments) -> torch.Tensor:
         partial = torch.empty((seg.num_items, f), dtype=torch.float32,
                               device=x.device)
         with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
             rc = _lib().alignn_sorted_segment_sum(
                 x.data_ptr(), x.stride(0), seg.item_rows.data_ptr(),
                 seg.num_items, seg.item_ptr.data_ptr(), partial.data_ptr(),
-                out.data_ptr(), seg.num, f, _DTYPE_CODE[x.dtype], stream)
+                out.data_ptr(), seg.num, f, _DTYPE_CODE[x.dtype], _stream(x))
         _raise_on(rc, "sorted_segment_sum")
         sorted_segment_sum_cuda.launches += 1
     return out
@@ -230,36 +229,40 @@ def _unit_stride(x: torch.Tensor) -> torch.Tensor:
 
 class _SortedSegmentSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, seg):
-        ctx.seg = seg
+    def forward(ctx, x, seg, window):
+        ctx.seg, ctx.window = seg, window
         x = _unit_stride(x)
         return _dispatch(x, sorted_segment_sum_plain,
                          sorted_segment_sum_cuda, x, seg)
 
     @staticmethod
     def backward(ctx, g):
-        return sorted_gather(g, ctx.seg), None
+        return sorted_gather(g, ctx.seg, ctx.window), None, None
 
 
 class _SortedGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, seg):
-        ctx.seg = seg
-        return x.index_select(0, seg.ids)
+    def forward(ctx, x, seg, window):
+        ctx.seg, ctx.window = seg, window
+        return windowed_gather(x, seg.ids, window)
 
     @staticmethod
     def backward(ctx, g):
-        return sorted_segment_sum(g, ctx.seg), None
+        return sorted_segment_sum(g, ctx.seg, ctx.window), None, None
 
 
-def sorted_segment_sum(x: torch.Tensor, seg: Segments) -> torch.Tensor:
-    """Segment sum over sorted ids (K2); VJP = :func:`sorted_gather`."""
-    return _SortedSegmentSum.apply(x, seg)
+def sorted_segment_sum(x: torch.Tensor, seg: Segments,
+                       window: int = 0) -> torch.Tensor:
+    """Segment sum over sorted ids (K2); VJP = :func:`sorted_gather` with
+    the same `window` (the static span of ``seg.ids``)."""
+    return _SortedSegmentSum.apply(x, seg, window)
 
 
-def sorted_gather(x: torch.Tensor, seg: Segments) -> torch.Tensor:
-    """x[seg.ids]; VJP = :func:`sorted_segment_sum` (K2)."""
-    return _SortedGather.apply(x, seg)
+def sorted_gather(x: torch.Tensor, seg: Segments,
+                  window: int = 0) -> torch.Tensor:
+    """x[seg.ids], through the windowed gather (K8, trash rows 0) when
+    `window` is usable; VJP = :func:`sorted_segment_sum` (K2)."""
+    return _SortedGather.apply(x, seg, window)
 
 
 class _PermuteRows(torch.autograd.Function):
@@ -281,60 +284,70 @@ def permute_rows(x: torch.Tensor, perm: torch.Tensor,
 
 class _GatherNodes(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, idx, perm, inv_perm, seg_sorted):
+    def forward(ctx, x, idx, perm, inv_perm, seg_sorted, window,
+                window_sorted):
         ctx.perm, ctx.inv_perm, ctx.seg_sorted = perm, inv_perm, seg_sorted
-        return x.index_select(0, idx)
+        ctx.window_sorted = window_sorted
+        return windowed_gather(x, idx, window)
 
     @staticmethod
     def backward(ctx, g):
         g_sorted = permute_rows(g, ctx.perm, ctx.inv_perm)
-        return (sorted_segment_sum(g_sorted, ctx.seg_sorted),
-                None, None, None, None)
+        return (sorted_segment_sum(g_sorted, ctx.seg_sorted,
+                                   ctx.window_sorted),
+                None, None, None, None, None, None)
 
 
 def gather_nodes(x: torch.Tensor, idx: torch.Tensor, perm: torch.Tensor,
-                 inv_perm: torch.Tensor, seg_sorted: Segments) -> torch.Tensor:
+                 inv_perm: torch.Tensor, seg_sorted: Segments,
+                 window: int = 0, window_sorted: int = 0) -> torch.Tensor:
     """x[idx] for unsorted idx whose transpose is a sorted segment sum.
 
     `perm` is the stable argsort of `idx` and `seg_sorted` the segments of
     ``idx[perm]`` (both built once per batch); the VJP permutes the
-    cotangent into idx-sorted order and reduces it with K2.
+    cotangent into idx-sorted order and reduces it with K2.  `window`
+    routes the forward through K8; `window_sorted`, the span of
+    ``idx[perm]``, is the window of that segment sum's own VJP (the next
+    derivative order).
     """
-    return _GatherNodes.apply(x, idx, perm, inv_perm, seg_sorted)
+    return _GatherNodes.apply(x, idx, perm, inv_perm, seg_sorted, window,
+                              window_sorted)
 
 
 class _GatedAggregate(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, m, bh, seg):
+    def forward(ctx, m, bh, seg, window):
         h = _dispatch(m, gated_aggregate_plain, gated_aggregate_cuda,
                       _unit_stride(m), _unit_stride(bh), seg)
-        ctx.seg = seg
+        ctx.seg, ctx.window = seg, window
         ctx.save_for_backward(m, bh, h)
         return h
 
     @staticmethod
     def backward(ctx, g):
         m, bh, h = ctx.saved_tensors
-        seg = ctx.seg
+        seg, window = ctx.seg, ctx.window
         f = m.shape[-1]
         sigma = torch.sigmoid(m)
         # den is summed in f32: the forward divided by its f32 accumulator
         den = sorted_segment_sum(sigma.to(_acc_dtype(sigma.dtype)),
-                                 seg) + EPS
+                                 seg, window) + EPS
         ginv = g / den                       # [N, F]
         gh = -g * h / den                    # [N, F] dL/dden
-        packed = sorted_gather(torch.cat([ginv, gh], dim=-1), seg)
+        packed = sorted_gather(torch.cat([ginv, gh], dim=-1), seg, window)
         ginv_e, gh_e = packed[:, :f], packed[:, f:]
         dbh = (sigma * ginv_e).to(bh.dtype)
         dsigma = bh * ginv_e + gh_e
         dm = (sigma * (1 - sigma) * dsigma).to(m.dtype)
-        return dm, dbh, None
+        return dm, dbh, None, None
 
 
-def gated_aggregate(m: torch.Tensor, bh: torch.Tensor,
-                    seg: Segments) -> torch.Tensor:
+def gated_aggregate(m: torch.Tensor, bh: torch.Tensor, seg: Segments,
+                    window: int = 0) -> torch.Tensor:
     """h = segment-normalised sigmoid(m) * bh over sorted dst (K1).
 
-    Takes the pre-sigmoid gate logits `m`; output in m's dtype.
+    Takes the pre-sigmoid gate logits `m`; output in m's dtype.  `window`
+    (the static span of ``seg.ids``) routes the backward's gather of
+    ``[g/den | -g h/den]`` to the edges through K8.
     """
-    return _GatedAggregate.apply(m, bh, seg)
+    return _GatedAggregate.apply(m, bh, seg, window)

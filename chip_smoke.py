@@ -40,7 +40,21 @@ Phases:
    K5a, K5b, no K1, K6, K7; fused: K3, K6, K7, no K1, K4, K5a, K5b), peak
    memory and one profiled step; the first step's losses and gradients
    dense against sparse and fused against dense, and on the first 8
-   cells against the port on the CPU.
+   cells against the port on the CPU;
+8. the windowed gather K8 (``ALIGNN_TPU_ENABLE_WGATHER=1``, restored
+   after): K8 against its plain version, exactly (``torch.equal``), at
+   every gather of the sparse training batch (node and L-stage, src, dst,
+   the aggregation backward's and the second order's sorted indices) and
+   on blocky indices (an all-trash tile, a sparse tile, a window under the
+   span), f32 and bf16, with times at the two largest L-stage gathers
+   beside ``index_select`` (``library_ms``) and the byte bound;
+   ``wgather_batch``: ``atomwise_forward`` on the sparse
+   ``dense_rocksalt_b64`` batch with the switch on against off, and on 8
+   cells against the CPU port; ``wgather_train``: the sparse train step
+   with the switch on (12 steps) against the unwindowed sparse step and,
+   on 8 cells, the CPU port; ``loader``: one shuffled epoch of the port's
+   ``BucketedLoader`` (``worst_case_spec``, batch 64) over 256 rocksalt
+   cells through the windowed train step, with every batch's windows.
 
 Prints JSON lines; the last line is ``{"ok": true, "device": {...}}``.
 Exits non-zero, without that line, on any failed check, and when no CUDA
@@ -108,6 +122,21 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.record()
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in events]))
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds per call of `fn`, launch only (the card runs
+    behind): the Python cost of a wrapper."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    return us
 
 
 def bound(nbytes: float, flops: float, products: float = 0.0,
@@ -487,6 +516,7 @@ def launch_counters() -> dict:
     from alignn_tpu_torch.ops import dense as dk
     from alignn_tpu_torch.ops import eggc as ek
     from alignn_tpu_torch.ops import fused_lstage as fk
+    from alignn_tpu_torch.ops import gather as gk
 
     return {"K1": ek.gated_aggregate_cuda, "K2": ek.sorted_segment_sum_cuda,
             "K3": dk.dense_gated_aggregate_cuda,
@@ -494,7 +524,8 @@ def launch_counters() -> dict:
             "K5a": dk.pair_aggregate_bwd_cuda,
             "K5b": dk.pair_aggregate_bwd2_cuda,
             "K6": fk.fused_pair_lstage_cuda,
-            "K7": fk.fused_lstage_bwd_cuda}
+            "K7": fk.fused_lstage_bwd_cuda,
+            "K8": gk.windowed_gather_cuda}
 
 
 def reset_launches():
@@ -512,13 +543,19 @@ def si_cells():
 
 
 # kernels each layout must launch, and must not, in a serving call and in
-# a train step (which adds K5b, the second order of K4)
-LAYOUT_KERNELS = {"sparse": (("K1", "K2"), ("K6", "K7")),
-                  "dense": (("K3", "K4", "K5a"), ("K1", "K6", "K7")),
-                  "fused": (("K3", "K6", "K7"), ("K1", "K4", "K5a"))}
+# a train step (which adds K5b, the second order of K4).  Serving builds no
+# gather windows, so no serving layout launches K8; "wsparse" is the sparse
+# layout with ALIGNN_TPU_ENABLE_WGATHER set.
+LAYOUT_KERNELS = {"sparse": (("K1", "K2"), ("K6", "K7", "K8")),
+                  "dense": (("K3", "K4", "K5a"), ("K1", "K6", "K7", "K8")),
+                  "fused": (("K3", "K6", "K7"), ("K1", "K4", "K5a", "K8"))}
 TRAIN_KERNELS = {"sparse": LAYOUT_KERNELS["sparse"],
-                 "dense": (("K3", "K4", "K5a", "K5b"), ("K1", "K6", "K7")),
-                 "fused": (("K3", "K6", "K7"), ("K1", "K4", "K5a", "K5b"))}
+                 "dense": (("K3", "K4", "K5a", "K5b"),
+                           ("K1", "K6", "K7", "K8")),
+                 "fused": (("K3", "K6", "K7"), ("K1", "K4", "K5a", "K5b",
+                                                "K8")),
+                 "wsparse": (("K1", "K2", "K8"), ("K3", "K4", "K5a", "K5b",
+                                                  "K6", "K7"))}
 
 
 def run_cells(new_calc, cells, layout: str, failures: list):
@@ -613,12 +650,10 @@ def rocksalt_b64():
 def batch_phase(model, failures: list):
     """dense_rocksalt_b64: one dense and one sparse batch of the same 64
     graphs through ``atomwise_forward``; per-graph E and S, per-atom F."""
-    import torch
-
     from alignn_tpu_torch.graph.batch import BucketSpec, batch_graphs
     from alignn_tpu_torch.graph.dense import (dense_batch_graphs,
                                               dense_spec_for_batch)
-    from alignn_tpu_torch.nn.models import EV_A3_TO_GPA, atomwise_forward
+    from alignn_tpu_torch.nn.models import atomwise_forward
 
     dev = next(model.parameters()).device
     graphs = rocksalt_b64()
@@ -630,10 +665,7 @@ def batch_phase(model, failures: list):
     for name, batch in (("dense", dense), ("sparse", sparse)):
         if name == "dense":
             reset_launches()
-        res = atomwise_forward(model, batch)
-        res = {k: res[k].detach().cpu().numpy()
-               for k in ("out", "grad", "stresses")}
-        torch.cuda.synchronize()
+        res = forward_numpy(model, batch)
         if name == "dense":
             launches = read_launches()
         t = []
@@ -643,12 +675,7 @@ def batch_phase(model, failures: list):
             t.append((time.perf_counter() - t0) * 1e3)
         out[name] = (res, float(np.median(t)))
     (rd, dense_ms), (rs, sparse_ms) = out["dense"], out["sparse"]
-    diff = {
-        "energy_per_atom": float(np.abs(rd["out"][:ng, 0]
-                                        - rs["out"][:ng, 0]).max()),
-        "forces": float(np.abs(rd["grad"][:n] - rs["grad"][:n]).max()),
-        "stress": float(np.abs(rd["stresses"][:ng] - rs["stresses"][:ng])
-                        .max() / EV_A3_TO_GPA)}
+    diff = efs_diff(rd, rs, ng, n)
     row = {"cell": "dense_rocksalt_b64", "graphs": ng, "atoms": n,
            "edges": sum(g.num_edges for g in graphs),
            "lg_edges": sum(g.num_lg_edges for g in graphs),
@@ -666,6 +693,31 @@ def batch_phase(model, failures: list):
         failures.append(f"dense_rocksalt_b64: finite {finite}, D "
                         f"{spec.dense_D}, launches {launches}")
     return row
+
+
+def forward_numpy(model, batch) -> dict:
+    """out, grad (forces) and stresses of ``atomwise_forward`` as numpy
+    (the copy synchronises)."""
+    from alignn_tpu_torch.nn.models import atomwise_forward
+
+    res = atomwise_forward(model, batch)
+    return {k: res[k].detach().cpu().numpy()
+            for k in ("out", "grad", "stresses")}
+
+
+def efs_diff(a: dict, b: dict, ng: int, n: int) -> dict:
+    """Largest E (per graph row of `out`), F and S (eV/A^3) differences of
+    two atomwise_forward results over `ng` graphs and `n` atoms."""
+    from alignn_tpu_torch.nn.models import EV_A3_TO_GPA
+
+    return {"energy_per_atom": float(np.abs(a["out"][:ng, 0]
+                                            - b["out"][:ng, 0]).max()),
+            "forces": float(np.abs(a["grad"][:n] - b["grad"][:n]).max()),
+            "stress": float(np.abs(a["stresses"][:ng] - b["stresses"][:ng])
+                            .max() / EV_A3_TO_GPA),
+            "bitwise_equal": bool(all(np.array_equal(a[k][:m], b[k][:m])
+                                      for k, m in (("out", ng), ("grad", n),
+                                                   ("stresses", ng))))}
 
 
 TRAIN_CFG = dict(  # bench.py's model and loss weights, full f32
@@ -810,7 +862,7 @@ def train_phase(weights, graphs, failures: list):
     the card against the port on the CPU.
 
     Returns (row, launches per step per layout, kernel results at the
-    training shapes, those shapes, the dense first step)."""
+    training shapes, those shapes, the first step of each layout)."""
     import torch
 
     dev = torch.device("cuda")
@@ -836,7 +888,7 @@ def train_phase(weights, graphs, failures: list):
             "optimizer": "adamw lr 1e-3 wd 1e-5, no decay mask",
             "precision": "f32 (TF32 off)", "tolerances": TRAIN_TOL,
             **checks, "dense": rows["dense"], "sparse": rows["sparse"]}, \
-        launch_runs, kernels, dshape, first["dense"]
+        launch_runs, kernels, dshape, first
 
 
 def fused_train_phase(weights, graphs, dense_first, failures: list):
@@ -863,6 +915,279 @@ def fused_train_phase(weights, graphs, dense_first, failures: list):
             "fused": row}, launches
 
 
+def blocky_indices(rng, blocks, refs_per_block, trash, quantum=512):
+    """Batched-graph-style indices (tests/test_pallas_gather.py): random
+    refs into each block, then trash up to a multiple of `quantum`."""
+    idx, off = [], 0
+    for b in blocks:
+        idx.extend(off + rng.integers(0, b, size=refs_per_block * b))
+        off += b
+    m = -(-len(idx) // quantum) * quantum
+    return np.array(list(idx) + [trash] * (m - len(idx)), dtype=np.int64)
+
+
+def gather_sites(batch) -> list:
+    """(site, table rows, F, index tensor, window) of every gather of a
+    sparse training step on `batch` (hidden 256): the node stage's src
+    gather of [src_gate | bh], its dst gather, the aggregation backward's
+    [ginv | gh] gather, the same three in the L-stage, and the gathers of
+    the second order by the sorted src and lg_src."""
+    n, e = batch.z.shape[0], batch.r.shape[0]
+    g, lg = batch.g_index, batch.lg_index
+    return [("node_src", n, 512, g.src, batch.win_src),
+            ("node_dst", n, 256, g.dst.ids, batch.win_dst),
+            ("node_agg_bwd", n, 512, g.dst.ids, batch.win_dst),
+            ("node_src_sorted", n, 512, g.src_sorted.ids,
+             batch.win_src_sorted),
+            ("lstage_src", e, 512, lg.src, batch.win_lg_src),
+            ("lstage_dst", e, 256, lg.dst.ids, batch.win_lg_dst),
+            ("lstage_agg_bwd", e, 512, lg.dst.ids, batch.win_lg_dst),
+            ("lstage_src_sorted", e, 512, lg.src_sorted.ids,
+             batch.win_lg_src_sorted)]
+
+
+def gather_kernel_phase(batch, failures: list):
+    """K8 against windowed_gather_plain on the card, exactly (torch.equal),
+    f32 and bf16: at every gather of the sparse training batch `batch`
+    (its own windows) and on blocky indices (an all-trash tile, a sparse
+    tile, a window under the span).  Times (f32 and bf16) at the L-stage
+    src gather [L, 512] and (f32) at the dst gather [L, 256], beside one
+    ``index_select`` (which differs only on trash rows) and the byte
+    bound: the table read once (the window stays in L2), the indices
+    read, the output written."""
+    import torch
+
+    from alignn_tpu_torch.ops import gather as gk
+
+    dev = batch.r.device
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rng = np.random.default_rng(0)
+    trash = 1279
+    blocky = blocky_indices(rng, [180, 200, 150, 190, 170, 160], 4, trash)
+    sparse = np.full(1024, trash, np.int64)
+    sparse[812:852] = 7
+    sites = gather_sites(batch) + [
+        ("blocky", 1280, 256, blocky, gk.window_for(blocky, trash)),
+        ("below_span", 1280, 256, blocky, 256),
+        ("sparse_tile", 1280, 256, sparse, gk.window_for(sparse, trash))]
+    checks = {}
+    for site, rows, f, idx, w in sites:
+        idx = torch.as_tensor(idx, device=dev)
+        x32 = torch.randn(rows, f, device=dev, generator=gen)
+        checks[site] = {"rows": rows, "features": f, "indices": idx.shape[0],
+                        "window": w}
+        if not gk.eligible(x32, idx, w):
+            failures.append(f"K8 {site}: window {w} does not take the "
+                            f"window path")
+            continue
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            got = gk.windowed_gather_cuda(x, idx, w)
+            ref = gk.windowed_gather_plain(x, idx, w)
+            torch.cuda.synchronize()
+            name = str(dtype).split(".")[1]
+            equal = torch.equal(got, ref)
+            err = (got.float() - ref.float()).abs().max().item()
+            checks[site][name] = {
+                "equal": equal, "max_abs_err": err,
+                "rel_err": err / max(ref.float().abs().max().item(), 1e-30),
+                "zero_rows": int((got == 0).all(dim=1).sum().item())}
+            if not equal:
+                failures.append(f"K8 {site} [{name}]: differs from its "
+                                f"plain version")
+    results = {"checks": checks}
+    sites = {s[0]: s for s in gather_sites(batch)}
+    for key, site, dtypes in (
+            ("float32", "lstage_src", (torch.float32, torch.bfloat16)),
+            ("dst_float32", "lstage_dst", (torch.float32,))):
+        _s, rows, f, idx, w = sites[site]
+        x32 = torch.randn(rows, f, device=dev, generator=gen)
+        for dtype in dtypes:
+            x = x32.to(dtype)
+            m = idx.shape[0]
+            b_ms, b_by = bound((m + rows) * f * x.element_size()
+                               + m * idx.element_size(), 0.0)
+            # the largest error over every checked site, in this dtype
+            errs = [c[str(dtype).split(".")[1]] for c in checks.values()
+                    if str(dtype).split(".")[1] in c]
+            entry = {
+                "site": site, "shape": [rows, f, m], "window": w,
+                "max_abs_err": max(e["max_abs_err"] for e in errs),
+                "rel_err": max(e["rel_err"] for e in errs), "tol_rel": 0.0,
+                "ms": cuda_ms(lambda: gk.windowed_gather_cuda(x, idx, w)),
+                "plain_ms": cuda_ms(
+                    lambda: gk.windowed_gather_plain(x, idx, w)),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": cuda_ms(lambda: x.index_select(0, idx)),
+                "host_us": host_us(lambda: gk.windowed_gather(x, idx, w)),
+                "library_host_us": host_us(lambda: x.index_select(0, idx))}
+            results[key if dtype == torch.float32 else "bfloat16"] = entry
+        del x32, x
+    torch.cuda.empty_cache()
+    return results
+
+
+def wgather_batch_phase(model, cpu_model, failures: list):
+    """dense_rocksalt_b64 as one sparse windowed batch through
+    ``atomwise_forward`` with ALIGNN_TPU_ENABLE_WGATHER on (it must launch
+    K8 and no dense kernel) against the same call with it off, and the
+    first 8 cells on the card against the CPU port, both windowed; E, F
+    and S within CPU_TOL."""
+    import torch
+
+    from alignn_tpu_torch.graph.batch import (WIN_FIELDS, BucketSpec,
+                                              batch_graphs)
+    from alignn_tpu_torch.nn.models import atomwise_forward
+
+    dev = next(model.parameters()).device
+    graphs = rocksalt_b64()
+    batch = batch_graphs(graphs, BucketSpec.tight_for_batch(graphs), dev)
+    ng, n = len(graphs), sum(g.num_nodes for g in graphs)
+    row = {"cell": "dense_rocksalt_b64", "layout": "sparse, windowed",
+           "bucket": list(vars(BucketSpec.tight_for_batch(graphs)).values()),
+           "windows": {k: getattr(batch, k) for k in WIN_FIELDS}}
+
+    def median_ms() -> float:   # as batch_phase times it: grad copied
+        t = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            atomwise_forward(model, batch)["grad"].cpu()
+            t.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(t))
+
+    off = forward_numpy(model, batch)
+    row["ms_unwindowed"] = median_ms()
+    with switch_env(WGATHER_ENV):
+        reset_launches()
+        on = forward_numpy(model, batch)
+        torch.cuda.synchronize()
+        row["launches"] = read_launches()
+        row["ms_windowed"] = median_ms()
+        g8 = graphs[:8]
+        spec8 = BucketSpec.tight_for_batch(g8)
+        card8 = forward_numpy(model, batch_graphs(g8, spec8, dev))
+        cpu8 = forward_numpy(cpu_model, batch_graphs(
+            g8, spec8, torch.device("cpu")))
+    n8 = sum(g.num_nodes for g in g8)
+    row.update({"windowed_vs_unwindowed": efs_diff(on, off, ng, n),
+                "windowed_8_vs_cpu_port": efs_diff(card8, cpu8, 8, n8)})
+    for label in ("windowed_vs_unwindowed", "windowed_8_vs_cpu_port"):
+        for key, tol in CPU_TOL.items():
+            if not row[label][key] <= tol:
+                failures.append(f"wgather_batch: {key} {label} "
+                                f"{row[label][key]} > {tol}")
+    finite = all(np.isfinite(v).all() for v in on.values())
+    need, banned = TRAIN_KERNELS["wsparse"]
+    if not finite or any(row["launches"][k] <= 0 for k in need) or \
+            any(row["launches"][k] != 0 for k in banned):
+        failures.append(f"wgather_batch: finite {finite}, launches "
+                        f"{row['launches']} (need {need}, none of {banned})")
+    return row
+
+
+def wgather_train_phase(weights, graphs, sparse_first, failures: list):
+    """The sparse train step with ALIGNN_TPU_ENABLE_WGATHER set (by the
+    caller) on dense_rocksalt_b64: 2 warm-up and 10 timed steps, the first
+    step's losses and gradients against the unwindowed sparse step's, and
+    on the first 8 cells against the port's windowed step on the CPU."""
+    import torch
+
+    from alignn_tpu_torch.graph.batch import WIN_FIELDS
+
+    dev = torch.device("cuda")
+    batch = train_batches(graphs, dev)["sparse"]
+    windows = {k: getattr(batch, k) for k in WIN_FIELDS}
+    row, first, launches = train_run(weights, batch, "wsparse", failures)
+    del batch
+    checks = {"windowed_vs_sparse": step_diff(first, sparse_first,
+                                              "windowed vs sparse", failures),
+              "windowed_8_vs_cpu_port": step_diff(
+                  first_step(weights, train_batches(graphs[:8],
+                                                    dev)["sparse"]),
+                  first_step(weights, train_batches(
+                      graphs[:8], torch.device("cpu"))["sparse"]),
+                  "windowed 8 cells card vs CPU", failures)}
+    return {"cell": "dense_rocksalt_b64", "layout": "sparse, windowed",
+            "windows": windows, "precision": "f32 (TF32 off)",
+            "tolerances": TRAIN_TOL, **checks, "wsparse": row}, launches
+
+
+def loader_phase(weights, failures: list):
+    """One shuffled epoch (seed 0) of the port's BucketedLoader
+    (worst_case_spec, batch 64, prefetch thread) over 256 rocksalt cells
+    made as bench.py makes them (seed 0), through the windowed sparse train
+    step (ALIGNN_TPU_ENABLE_WGATHER set by the caller): every batch's
+    floored windows, the loader's floors, the loss per step, the host time
+    to build a batch against the step's, and the launches of the epoch."""
+    import torch
+
+    from alignn_tpu_torch.data.dataset import GraphDataset
+    from alignn_tpu_torch.data.loader import BucketedLoader, worst_case_spec
+    from alignn_tpu_torch.graph.batch import WIN_FIELDS
+    from alignn_tpu_torch.graph.build import rocksalt_graphs
+    from alignn_tpu_torch.nn.models import (ALIGNNAtomWise,
+                                            ALIGNNAtomWiseConfig)
+    from alignn_tpu_torch.train.optim import build_optimizer
+    from alignn_tpu_torch.train.state import (create_train_state,
+                                              make_train_step)
+
+    t0 = time.perf_counter()
+    graphs = rocksalt_graphs(256, seed=0)
+    graph_s = time.perf_counter() - t0
+    spec = worst_case_spec(graphs, 64)
+    loader = BucketedLoader(
+        GraphDataset(graphs, [f"rocksalt-{i}" for i in range(256)]), 64,
+        shuffle=True, spec=spec, seed=0)
+    order = loader._order()
+    build_ms = []
+    for s in range(2):   # outside the epoch: no floor is touched
+        t0 = time.perf_counter()
+        loader._make_batch(order[s * 64:(s + 1) * 64])
+        torch.cuda.synchronize()
+        build_ms.append((time.perf_counter() - t0) * 1e3)
+    model = ALIGNNAtomWise(ALIGNNAtomWiseConfig(**TRAIN_CFG)).cuda()
+    model.load_state_dict(weights)
+    it = iter(loader)
+    first = next(it)   # state and step from the first batch
+    state = create_train_state(model, first,
+                               build_optimizer("adamw", 1e-3, 1e-5))
+    step = make_train_step(model)
+    torch.cuda.synchronize()
+    steps, batch = [], first
+    reset_launches()
+    while batch is not None:
+        t0 = time.perf_counter()
+        state, losses = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        steps.append({"windows": {k: getattr(batch, k) for k in WIN_FIELDS},
+                      "real_edges": int(batch.edge_mask.sum().item()
+                                        + batch.lg_mask.sum().item()),
+                      "loss": float(losses["loss"]), "step_ms": step_ms})
+        t0 = time.perf_counter()
+        batch = next(it, None)
+        steps[-1]["wait_next_batch_ms"] = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    row = {"cell": "rocksalt_256_loader", "graphs": 256, "batch_size": 64,
+           "bucket": list(vars(spec).values()), "graph_build_s": graph_s,
+           "host_batch_build_ms": build_ms, "steps": steps,
+           "floors": dict(loader._win_floor),
+           "launches": launches,
+           "launches_per_step": {k: v / len(steps)
+                                 for k, v in launches.items()}}
+    if len(steps) != 4 or not all(np.isfinite(s_["loss"]) for s_ in steps):
+        failures.append(f"loader: {len(steps)} steps, losses "
+                        f"{[s_['loss'] for s_ in steps]}")
+    need, banned = TRAIN_KERNELS["wsparse"]
+    if any(launches[k] <= 0 for k in need) or \
+            any(launches[k] != 0 for k in banned):
+        failures.append(f"loader: launches {launches} (need {need}, none of "
+                        f"{banned})")
+    del state, model, first
+    torch.cuda.empty_cache()
+    return row
+
+
 KERNELS = (  # id, name, source, replaces
     ("K1", "eggc_gated_aggregate", "alignn_tpu_torch/csrc/eggc.cu",
      "alignn_tpu/ops/pallas_eggc.py:45"),
@@ -880,23 +1205,27 @@ KERNELS = (  # id, name, source, replaces
      "alignn_tpu/ops/pallas_fused_lstage.py:103"),
     ("K7", "fused_lstage_bwd", "alignn_tpu_torch/csrc/fused_lstage.cu",
      "alignn_tpu/ops/pallas_fused_lstage.py:294"),
+    ("K8", "windowed_gather", "alignn_tpu_torch/csrc/gather.cu",
+     "alignn_tpu/ops/pallas_gather.py:119"),
 )
 DENSE_KERNELS = ("K3", "K4", "K5a", "K5b", "K6", "K7")
 FUSED_ENV = "ALIGNN_TPU_FUSED_LSTAGE"
+WGATHER_ENV = "ALIGNN_TPU_ENABLE_WGATHER"
 
 
 @contextlib.contextmanager
-def fused_lstage_env():
-    """ALIGNN_TPU_FUSED_LSTAGE=1 inside, restored after whatever happens."""
-    previous = os.environ.get(FUSED_ENV)
-    os.environ[FUSED_ENV] = "1"
+def switch_env(name: str):
+    """The switch `name` set to 1 inside, restored after whatever
+    happens."""
+    previous = os.environ.get(name)
+    os.environ[name] = "1"
     try:
         yield
     finally:
         if previous is None:
-            del os.environ[FUSED_ENV]
+            del os.environ[name]
         else:
-            os.environ[FUSED_ENV] = previous
+            os.environ[name] = previous
 
 
 def fused_slice(new_dense_calc, drows, cpu_calc, failures: list):
@@ -905,7 +1234,7 @@ def fused_slice(new_dense_calc, drows, cpu_calc, failures: list):
     the unfused dense results `drows` of the same cells on the card and, at
     8 and 64 atoms, against `cpu_calc()` (the port's fused path on the
     CPU).  Returns (rows, launches over the three cells)."""
-    with fused_lstage_env():
+    with switch_env(FUSED_ENV):
         # counts from 0 over the three cells
         reset_launches()
         frows = run_cells(new_dense_calc, si_cells(), "fused", failures)
@@ -1013,13 +1342,29 @@ def main() -> int:
     graphs = rocksalt_b64()
     weights = init_parameters(ALIGNNAtomWise(ALIGNNAtomWiseConfig(
         **TRAIN_CFG)), torch.Generator().manual_seed(0)).state_dict()
-    train_row, train_launches, train_kernels, train_shape, dense_first = \
+    train_row, train_launches, train_kernels, train_shape, first = \
         train_phase(weights, graphs, failures)
     emit({"phase": "train", **train_row})
-    with fused_lstage_env():
+    with switch_env(FUSED_ENV):
         fused_row, train_launches["fused"] = fused_train_phase(
-            weights, graphs, dense_first, failures)
+            weights, graphs, first["dense"], failures)
     emit({"phase": "fused_train", **fused_row})
+
+    # the windowed sparse path (ALIGNN_TPU_ENABLE_WGATHER=1): K8 at the
+    # training batch's gathers, then serving the batch, training on it
+    # (counts from 0 over its 12 steps) and one loader epoch
+    gbatch = train_batches(graphs, torch.device("cuda"))["sparse"]
+    kernels["K8"] = gather_kernel_phase(gbatch, failures)
+    del gbatch
+    emit({"phase": "wgather_batch",
+          **wgather_batch_phase(base.model, cpu_base.model, failures)})
+    torch.cuda.empty_cache()
+    with switch_env(WGATHER_ENV):
+        wtrain_row, train_launches["wsparse"] = wgather_train_phase(
+            weights, graphs, first["sparse"], failures)
+    emit({"phase": "wgather_train", **wtrain_row})
+    with switch_env(WGATHER_ENV):
+        emit({"phase": "loader", **loader_phase(weights, failures)})
 
     line = []
     for key, name, source, replaces in KERNELS:
@@ -1033,6 +1378,11 @@ def main() -> int:
         if key == "K5b":
             r, launches, kshape = train_kernels[key], \
                 {key: train_launches["dense"][key] * 12}, train_shape
+        elif key == "K8":
+            # K8 runs only on windowed batches: its count is the windowed
+            # train step's (12 steps), its numbers the L-stage gathers'
+            launches, kshape = {key: train_launches["wsparse"][key] * 12}, \
+                r["float32"]["shape"]
         else:
             launches = fused_launches if key in ("K6", "K7") else \
                 dense_launches if dense else sparse_launches
@@ -1060,7 +1410,11 @@ def main() -> int:
                              "dense_rocksalt_b64": {"shape": train_shape,
                                                     **train_kernels[key]}}}
                if dense else {}),
-            **({"backward": r["backward"]} if "backward" in r else {})})
+            **({"backward": r["backward"]} if "backward" in r else {}),
+            **({"host_us": f32["host_us"],
+                "library_host_us": f32["library_host_us"],
+                "dst_float32": r["dst_float32"], "sites": r["checks"]}
+               if key == "K8" else {})})
     emit({"kernels": line})
     if failures:
         for msg in failures:
