@@ -67,14 +67,21 @@ class Calculator:
             from alignn_tpu_torch.zoo import load_model_dir
 
             model, config = load_model_dir(path, self.device)
-        self.model = model.to(self.device).eval()
+        model = model.to(self.device).eval()
         self.config = config or {}
         # reference parity: a checkpoint trained with stresswise_weight=0
         # would return all-zero stress; the reference patches the weight
         # to 0.1 (stress comes from the same gradient, no parameter moves)
-        cfg = self.model.cfg
+        # on a model object of its own, as the reference builds one: it
+        # holds the caller's parameter tensors themselves (assigned, not
+        # copied), and the caller's module, cfg and hooks stay as they were
+        cfg = model.cfg
         if cfg.stresswise_weight == 0 and cfg.calculate_gradient:
-            self.model.cfg = dataclasses.replace(cfg, stresswise_weight=0.1)
+            own = type(model)(dataclasses.replace(cfg, stresswise_weight=0.1))
+            own.to(self.device).load_state_dict(
+                model.state_dict(keep_vars=True), assign=True)
+            model = own.eval()
+        self.model = model
         self.intensive = intensive
         self.force_multiplier = force_multiplier
         self.force_mult_natoms = force_mult_natoms

@@ -84,6 +84,24 @@ class ALIGNNAtomWiseConfig:
         return cls(**{k: v for k, v in d.items() if k in known})
 
 
+def _link_init_bias(link: str):
+    """The output bias a link function starts from (None: the default
+    draw): log(0.7) for the log link, the reference's average band gap."""
+    if link == "log":
+        return float(math.log(0.7))
+    return None
+
+
+def _init_link_bias(model: "ALIGNNAtomWise"):
+    """Set ``fc.bias`` to the link's start value, where it has one (not
+    for classification, whose head JAX builds without it)."""
+    value = None if model.cfg.classification \
+        else _link_init_bias(model.cfg.link)
+    if value is not None:
+        with torch.no_grad():
+            model.fc.bias.fill_(value)
+
+
 def _apply_link(out: torch.Tensor, link: str) -> torch.Tensor:
     if link == "log":
         return torch.exp(out)
@@ -174,6 +192,7 @@ class ALIGNNAtomWise(nn.Module):
         hid = cfg.hidden_features
         self.fc = Dense(hid, 1 if cfg.classification
                         else cfg.output_features)
+        _init_link_bias(self)
         if cfg.additional_output_features > 0:
             self.fc_additional_output = Dense(
                 hid, cfg.additional_output_features)
@@ -205,7 +224,8 @@ def init_parameters(model: nn.Module,
     """Redraw every parameter from `generator` (a CPU generator, so the
     draws do not depend on the device) with the modules' default laws:
     Dense weight and bias U(-1/sqrt(fan_in), 1/sqrt(fan_in)) as
-    ``nn.Linear`` draws them, LayerNorm scale 1 and bias 0."""
+    ``nn.Linear`` draws them, LayerNorm scale 1 and bias 0, and the
+    output bias of a log link log(0.7), as JAX initialises it."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, nn.Linear):
@@ -216,6 +236,8 @@ def init_parameters(model: nn.Module,
             elif isinstance(m, MaskedLayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
+    if isinstance(model, ALIGNNAtomWise):
+        _init_link_bias(model)
     return model
 
 

@@ -25,9 +25,11 @@ garbage, as in JAX; the model never reads them.
   saved inputs, as JAX's ``_bwd_op_bwd`` is ``jax.vjp`` of ``_bwd_body``.
   A third derivative raises: nothing needs one.
 
-Both kernels are in ``csrc/fused_lstage.cu``, for F 128 or 256.  Bound on
-an H100 SXM at the dense training batch (86,528 pair rows, F 256, f32): by
-operations, K6 0.169 ms (one product, 11.3 GFLOP), K7 0.508 ms (three).
+Both kernels are in ``csrc/fused_lstage.cu``, for F 128 or 256, with their
+products on the tensor cores: bf16 natively, f32 by the 3xTF32 split.
+Bound on an H100 SXM at the dense training batch (86,528 pair rows, F 256,
+f32): by operations at 165 TFLOP/s of f32-grade products (three TF32
+products each), K6 0.069 ms (one product, 11.3 GFLOP), K7 0.206 ms (three).
 
 Dispatch rule of every wrapper (as in :mod:`alignn_tpu_torch.ops.eggc`):
 a tensor on the CPU takes the plain PyTorch version (``*_plain``); a CUDA
@@ -134,14 +136,14 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_alignn_configured", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.alignn_fused_lstage_fwd.argtypes = [
-            p, ll, p, p, p, ll, p, ll, p, ll, p, p, p, p, i, i, i, i, p]
+            p, ll, p, p, p, p, ll, p, ll, p, ll, p, p, p, p, i, i, i, i, p]
         lib.alignn_fused_lstage_fwd.restype = i
         lib.alignn_fused_lstage_bwd.argtypes = [
             p, ll, p, p, p, p, ll, p, ll, p, ll, p, p, p, ll, p, ll,
-            p, p, p, p, p, p, p, p, p, i, i, i, i, p]
+            p, p, p, p, p, p, p, p, i, i, i, i, p]
         lib.alignn_fused_lstage_bwd.restype = i
-        lib.alignn_fused_lstage_bwd_chunks.argtypes = [ll]
-        lib.alignn_fused_lstage_bwd_chunks.restype = ll
+        lib.alignn_fused_lstage_bwd_scratch.argtypes = [i, i, i]
+        lib.alignn_fused_lstage_bwd_scratch.restype = ll
         lib._alignn_configured = True
     return lib
 
@@ -156,7 +158,8 @@ def _raise_on_fused(rc: int, name: str, D: int):
 
 
 def _operands(name, z, w, b, sg_f, dg_f, bh, scale, bias, D):
-    """Checks the operands; (n, F, W in z's dtype, f32 b, scale, bias)."""
+    """Checks the operands; (n, F, z with 16-byte rows, W and W^T in z's
+    dtype, f32 b, scale, bias)."""
     n = _blocks(name, sg_f, D)
     _check(name, z, n * D * D, z)
     for x in (sg_f, dg_f, bh):
@@ -174,20 +177,24 @@ def _operands(name, z, w, b, sg_f, dg_f, bh, scale, bias, D):
             raise ValueError(f"{name}: vectors must be [{f}] on {z.device}, "
                              f"got {tuple(v.shape)} on {v.device}")
         vecs.append(v.float().contiguous())
-    return n, f, w.to(z.dtype).contiguous(), vecs
+    if z.data_ptr() % 16 or z.stride(0) * z.element_size() % 16:
+        z = z.contiguous()   # the kernels stage z with 16-byte copies
+    wz = w.to(z.dtype).contiguous()
+    return n, f, z, wz, wz.t().contiguous(), vecs
 
 
 def fused_pair_lstage_cuda(z, w, b, sg_f, dg_f, bh, scale, bias, D: int):
     """K6 on the card: (e_new [N*D*D, F], h [N*D, F]) in z's dtype."""
     name = "fused_pair_lstage"
-    n, f, wz, (b32, sc32, bi32) = _operands(name, z, w, b, sg_f, dg_f, bh,
-                                            scale, bias, D)
+    n, f, z, wz, wt, (b32, sc32, bi32) = _operands(
+        name, z, w, b, sg_f, dg_f, bh, scale, bias, D)
     e_new = torch.empty((n * D * D, f), dtype=z.dtype, device=z.device)
     h = torch.empty((n * D, f), dtype=z.dtype, device=z.device)
     if h.numel():
         with torch.cuda.device(z.device):
             rc = _lib().alignn_fused_lstage_fwd(
-                z.data_ptr(), z.stride(0), wz.data_ptr(), b32.data_ptr(),
+                z.data_ptr(), z.stride(0), wz.data_ptr(), wt.data_ptr(),
+                b32.data_ptr(),
                 sg_f.data_ptr(), sg_f.stride(0), dg_f.data_ptr(),
                 dg_f.stride(0), bh.data_ptr(), bh.stride(0), sc32.data_ptr(),
                 bi32.data_ptr(), e_new.data_ptr(), h.data_ptr(), n, D, f,
@@ -204,11 +211,11 @@ def fused_lstage_bwd_cuda(z, w, b, sg_f, dg_f, bh, scale, bias, de, dh,
                           D: int):
     """K7 on the card: (dz, dW, db, dsg, ddg, dbh, dscale, dbias); the
     tables in z's dtype, dW and the vectors in the dtypes of w, b, scale
-    and bias, f32 arithmetic.  dW and the vectors are summed from per-chunk
-    and per-node partials in a fixed order (no atomics)."""
+    and bias, f32 arithmetic.  dW, the vectors, dsg and dbh are summed from
+    per-chunk and per-tile partials in a fixed order (no atomics)."""
     name = "fused_lstage_bwd"
-    n, f, wz, (b32, sc32, bi32) = _operands(name, z, w, b, sg_f, dg_f, bh,
-                                            scale, bias, D)
+    n, f, z, wz, wt, (b32, sc32, bi32) = _operands(
+        name, z, w, b, sg_f, dg_f, bh, scale, bias, D)
     _check(name, de, n * D * D, z)
     _check(name, dh, n * D, z)
     rows, dev = n * D * D, z.device
@@ -218,13 +225,13 @@ def fused_lstage_bwd_cuda(z, w, b, sg_f, dg_f, bh, scale, bias, de, dh,
 
     dz, dm2c = table(rows), table(rows)
     dsg, ddg, dbh = table(n * D), table(n * D), table(n * D)
-    chunks = _lib().alignn_fused_lstage_bwd_chunks(rows)
-    dw_part = torch.empty((chunks, f, f), dtype=torch.float32, device=dev)
-    vec_part = torch.empty((n, 3, f), dtype=torch.float32, device=dev)
+    floats = _lib().alignn_fused_lstage_bwd_scratch(n, D, f)
+    if floats < 0:
+        _raise_on_fused(floats, name, D)
+    scratch = torch.empty(floats, dtype=torch.float32, device=dev)
     dw = torch.zeros((f, f), dtype=torch.float32, device=dev)
     vec = torch.zeros((3, f), dtype=torch.float32, device=dev)
     if rows:
-        wt = wz.t().contiguous()
         with torch.cuda.device(dev):
             rc = _lib().alignn_fused_lstage_bwd(
                 z.data_ptr(), z.stride(0), wz.data_ptr(), wt.data_ptr(),
@@ -233,8 +240,8 @@ def fused_lstage_bwd_cuda(z, w, b, sg_f, dg_f, bh, scale, bias, de, dh,
                 sc32.data_ptr(), bi32.data_ptr(), de.data_ptr(), de.stride(0),
                 dh.data_ptr(), dh.stride(0), dz.data_ptr(), dsg.data_ptr(),
                 ddg.data_ptr(), dbh.data_ptr(), dm2c.data_ptr(),
-                dw_part.data_ptr(), vec_part.data_ptr(), dw.data_ptr(),
-                vec.data_ptr(), n, D, f, _DTYPE_CODE[z.dtype], _stream(z))
+                scratch.data_ptr(), dw.data_ptr(), vec.data_ptr(), n, D, f,
+                _DTYPE_CODE[z.dtype], _stream(z))
         _raise_on_fused(rc, name, D)
         fused_lstage_bwd_cuda.launches += 1
     return (dz, dw.to(w.dtype), vec[0].to(b.dtype), dsg, ddg, dbh,

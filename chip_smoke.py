@@ -77,6 +77,7 @@ MODEL_DIR = os.path.join(REPO, "docs", "mlearn_r4", "Si")
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12    # f32 outside the tensor cores
 H100_BF16_FLOP_PER_S = 989e12  # bf16 products on the tensor cores (dense)
+H100_TF32_FLOP_PER_S = 495e12  # TF32 products on the tensor cores (dense)
 SPIN_CYCLES_PER_S = 2e9        # a little above the H100's 1.98 GHz boost
 DIAMOND = np.array([[0, 0, 0], [0.25, 0.25, 0.25], [0, 0.5, 0.5],
                     [0.25, 0.75, 0.75], [0.5, 0, 0.5], [0.75, 0.25, 0.75],
@@ -144,15 +145,18 @@ def bound(nbytes: float, flops: float, products: float = 0.0,
     """(bound_ms, bound_by): the larger of the bytes and operations times.
 
     `flops` are elementwise operations, at the f32 rate outside the tensor
-    cores.  `products` are the operations of matrix products, for which the
-    peak depends on the operands: bf16 x bf16 accumulated in f32 is exact
-    and runs on the tensor cores; f32 must stay at the f32 rate, since the
-    f32 tolerance rules out TF32.
+    cores.  `products` are the operations of matrix products, whose least
+    time depends on the operands: bf16 x bf16 accumulated in f32 is exact
+    and runs on the tensor cores at the bf16 rate; an f32-grade product
+    runs on the tensor cores as the 3xTF32 split (hi.hi + hi.lo + lo.hi,
+    f32 sums), three TF32 products at the TF32 rate.
     """
-    rate = H100_BF16_FLOP_PER_S if dtype == "bfloat16" \
-        else H100_F32_FLOP_PER_S
+    if dtype == "bfloat16":
+        t_products = products / H100_BF16_FLOP_PER_S
+    else:
+        t_products = 3.0 * products / H100_TF32_FLOP_PER_S
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = (flops / H100_F32_FLOP_PER_S + products / rate) * 1e3
+    t_ops = (flops / H100_F32_FLOP_PER_S + t_products) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 

@@ -318,15 +318,29 @@ FUSED_CASES = [  # (nodes, D, F, dtype, strided input)
     (24, 13, 128, torch.bfloat16, True),
     (20, 18, 128, torch.float32, False),
     (16, 4, 256, torch.bfloat16, True),
+    # K6 tiles 64 // D t-groups, K7 min(64 // D, 16): D 5 and 13 cut nodes
+    # across tiles (K7's dsg and dbh from per-tile partials), the node
+    # counts leave the last tile part empty
+    (7, 1, 128, torch.float32, False),       # G 16 (K7) / 64 (K6)
+    (9, 5, 256, torch.bfloat16, True),       # G 12: 2.4 nodes a tile
+    (11, 13, 128, torch.float32, True),      # G 4: a node over 4 tiles
+    (13, 13, 256, torch.bfloat16, False),
+    (5, 18, 256, torch.float32, False),      # G 3: a node is 6 whole tiles
+    (7, 18, 128, torch.bfloat16, True),
+    (3, 64, 128, torch.bfloat16, False),     # the largest D: one t-group
+    (2, 64, 256, torch.float32, True),
 ]
 
 
-def _fused_operands(rng, n, D, f, dtype, strided, device):
+def _fused_operands(rng, n, D, f, dtype, strided, device, masked=False):
     """(z, w, b, sg_f, dg_f, bh, scale, bias), de, dh and the pair mask: node
-    0 empty, the edge mask folded into sg_f and dg_f, de 0 on masked pair
-    rows (as in the model: nothing reads those rows of e_new)."""
+    0 empty (every node with `masked`), the edge mask folded into sg_f and
+    dg_f, de 0 on masked pair rows (as in the model: nothing reads those
+    rows of e_new)."""
     em = (rng.random(n * D) < 0.8).astype(np.float32)
     em[:D] = 0.0
+    if masked:
+        em[:] = 0.0
     em_t = torch.tensor(em, device=device)
     lg = (em_t.reshape(n, 1, D) * em_t.reshape(n, D, 1)).reshape(-1)
 
@@ -346,13 +360,9 @@ def _fused_operands(rng, n, D, f, dtype, strided, device):
     return (z, w, vec(0.1), sg, dg, bh, vec(0.1, 1.0), vec(0.1)), de, dh, lg
 
 
-@pytest.mark.parametrize("n,D,f,dtype,strided", FUSED_CASES)
-def test_fused_kernels_match_plain(cuda, n, D, f, dtype, strided):
-    """K6 (h; e_new on real pair rows) and K7 (all eight outputs) against
-    their plain versions: f32 1e-5, bf16 1e-2, times max|plain|.  Masked
-    rows finite; one launch each."""
-    rng = np.random.default_rng(10)
-    args, de, dh, lg = _fused_operands(rng, n, D, f, dtype, strided, cuda)
+def _check_fused(args, de, dh, lg, D, dtype):
+    """K6 and K7 once against their plain versions (f32 1e-5, bf16 1e-2,
+    times max|plain|), one launch each; returns their outputs."""
     before = (fk.fused_pair_lstage_cuda.launches,
               fk.fused_lstage_bwd_cuda.launches)
     e_new, h = fk.fused_pair_lstage_cuda(*args, D)
@@ -363,17 +373,56 @@ def test_fused_kernels_match_plain(cuda, n, D, f, dtype, strided):
                                                    before[1] + 1)
     ref_e, ref_h = fk.fused_pair_lstage_plain(*args, D)
     real = lg > 0
-    _close_rel(e_new[real], ref_e[real], dtype)
+    if real.any():   # e_new is read on real pair rows only
+        _close_rel(e_new[real], ref_e[real], dtype)
     _close_rel(h, ref_h, dtype)
     assert torch.isfinite(e_new.float()).all()
-    assert torch.all(h[:D] == 0)                    # the empty node
-    refs = fk.fused_lstage_bwd_plain(*args, de, dh, D)
-    for out, ref in zip(grads, refs):
-        assert out.dtype == ref.dtype
+    for out, ref in zip(grads, fk.fused_lstage_bwd_plain(*args, de, dh, D)):
+        assert out.dtype == ref.dtype and out.shape == ref.shape
         tol = 1e-5 if dtype == torch.float32 else 1e-2
         err = (out.float() - ref.float()).abs().max().item()
         assert err <= tol * ref.float().abs().max().item(), err
         assert torch.isfinite(out.float()).all()
+    return (e_new, h, *grads)
+
+
+@pytest.mark.parametrize("n,D,f,dtype,strided", FUSED_CASES)
+def test_fused_kernels_match_plain(cuda, n, D, f, dtype, strided):
+    """K6 (h; e_new on real pair rows) and K7 (all eight outputs) against
+    their plain versions: f32 1e-5, bf16 1e-2, times max|plain|.  Masked
+    rows finite; one launch each."""
+    rng = np.random.default_rng(10)
+    args, de, dh, lg = _fused_operands(rng, n, D, f, dtype, strided, cuda)
+    h = _check_fused(args, de, dh, lg, D, dtype)[1]
+    assert torch.all(h[:D] == 0)                    # the empty node
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_kernels_all_masked(cuda, dtype):
+    """A batch whose pair rows are all masked: h and every cotangent
+    exactly 0 (sigmoid of the folded -1e9 is 0 at every order)."""
+    rng = np.random.default_rng(13)
+    args, de, dh, lg = _fused_operands(rng, 6, 13, 256, dtype, False, cuda,
+                                       masked=True)
+    outs = _check_fused(args, de, dh, lg, 13, dtype)
+    for x in outs[1:]:
+        assert torch.all(x == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_kernels_are_deterministic(cuda, dtype):
+    """Two launches on the same inputs give bit-identical outputs: every
+    sum across blocks (dW, db, dscale, dbias, dsg, dbh) is taken from
+    partials in a fixed order."""
+    rng = np.random.default_rng(14)
+    args, de, dh, _lg = _fused_operands(rng, 40, 13, 256, dtype, False, cuda)
+    first = (*fk.fused_pair_lstage_cuda(*args, 13),
+             *fk.fused_lstage_bwd_cuda(*args, de, dh, 13))
+    second = (*fk.fused_pair_lstage_cuda(*args, 13),
+              *fk.fused_lstage_bwd_cuda(*args, de, dh, 13))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_fused_autograd_runs_the_kernels(cuda):
