@@ -28,7 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
-BUILD_LOG: Dict[str, str] = {}   # source stem -> nvcc/ptxas output
+BUILD_LOG: Dict[str, str] = {}   # stem -> nvcc/ptxas output, this process
 
 
 def _raise_on(rc: int, name: str):
@@ -79,10 +79,19 @@ def build_all() -> Dict[str, Path]:
         if proc.returncode != 0:
             failed.append(f"{stem}.cu:\n{BUILD_LOG[stem]}")
             continue
+        lib.with_name(f"{lib.name}.log").write_text(BUILD_LOG[stem])
         os.replace(tmp, lib)   # atomic publish for concurrent builds
     if failed:
         raise RuntimeError("nvcc failed on " + "\n".join(failed))
     return targets
+
+
+def build_log(stem: str) -> str:
+    """nvcc's and ptxas's output (``-Xptxas -v``: registers, spills and
+    shared memory of every kernel) from the build of ``csrc/<stem>.cu``,
+    kept beside its library."""
+    lib = build_all()[stem]
+    return lib.with_name(f"{lib.name}.log").read_text()
 
 
 def library(stem: str) -> ctypes.CDLL:

@@ -34,7 +34,11 @@ numerator, the denominator and every gradient.
 K3's second order is autograd through its plain backward, as in JAX,
 whose ``gated_aggregate_bwd`` is opt-in and has no kernel.
 
-All four kernels are in ``csrc/dense.cu``.  Bound on an H100 SXM at the
+All four kernels are in ``csrc/dense.cu``; K5a and K5b stage a node's
+pair rows in shared memory once (the slab path) and keep their first,
+two-pass design for D too large for a slab (:func:`pair_bwd_occupancy`
+reads which path and how many blocks per SM a shape gets).  Bound on an
+H100 SXM at the
 512-atom dense shape (N 768, D 18, F 256, f32), all by bytes at
 3.35 TB/s: K3 29 MB (0.009 ms), K4 283 MB (0.085 ms), K5a 552 MB
 (0.165 ms), K5b 835 MB (0.249 ms).
@@ -174,6 +178,12 @@ def _lib() -> ctypes.CDLL:
         lib.alignn_pair_aggregate_bwd2.argtypes = [p, ll] * 5 + [
             p, p, p, i, i, i, i, p]
         lib.alignn_pair_aggregate_bwd2.restype = i
+        lib.alignn_pair_bwd_occupancy.argtypes = [i, i, i, i,
+                                                  ctypes.POINTER(i)]
+        lib.alignn_pair_bwd_occupancy.restype = i
+        lib.alignn_dense_sigmoid_mismatches.argtypes = [
+            ctypes.c_ulonglong, ctypes.c_ulonglong, p, p]
+        lib.alignn_dense_sigmoid_mismatches.restype = i
         lib._alignn_configured = True
     return lib
 
@@ -183,8 +193,8 @@ ERR_SMEM = -1   # kErrSmem in dense.cu: D too large for a block
 
 def _raise_on_pair(rc: int, name: str, D: int):
     """_raise_on, with a clear error where dense.cu found D too large for
-    the shared memory of one K4/K5a/K5b block (it stages [D, 128] f32
-    planes: 1 for K4, 3 for K5a, 6 for K5b)."""
+    the shared memory of one K4/K5a/K5b block (K4 stages one [D, 128] f32
+    plane; K5a/K5b a [D*D, W] slab or, past it, 3 and 6 [D, 128] planes)."""
     if rc == ERR_SMEM:
         raise ValueError(f"{name}: D = {D} needs more shared memory per "
                          f"block than the card allows")
@@ -310,6 +320,35 @@ def pair_aggregate_bwd2_cuda(m2: torch.Tensor, bh: torch.Tensor,
 
 
 pair_aggregate_bwd2_cuda.launches = 0
+
+
+def pair_bwd_occupancy(kernel: str, D: int, f: int,
+                       dtype: torch.dtype = torch.float32) -> dict:
+    """The launch that K5a (``kernel="K5a"``) or K5b (``"K5b"``) makes at
+    (D, f, dtype) for 16-byte-aligned inputs, read on the current card:
+    ``blocks_per_sm`` (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    ``smem_bytes`` (dynamic shared memory a block), ``width`` (W, the
+    features a block owns; 0 on the two-pass path) and ``threads``."""
+    out = (ctypes.c_int * 4)()
+    rc = _lib().alignn_pair_bwd_occupancy(
+        {"K5a": 0, "K5b": 1}[kernel], D, f, _DTYPE_CODE[dtype], out)
+    _raise_on_pair(rc, f"{kernel} occupancy", D)
+    return {"blocks_per_sm": out[0], "smem_bytes": out[1],
+            "width": out[2], "threads": out[3],
+            "path": "slab" if out[2] else "two-pass"}
+
+
+def sigmoid_mismatches(first: int = 0, count: int = 1 << 32) -> int:
+    """On the current card: how many of the f32 bit patterns first ..
+    first + count - 1 give a different bit pattern from dense.cu's
+    sigmoid (the select below -88.75) than from the exact 1 / (1 +
+    exp(-x)).  The default range is every f32."""
+    hits = torch.zeros(1, dtype=torch.int64, device="cuda")
+    rc = _lib().alignn_dense_sigmoid_mismatches(first, count,
+                                                hits.data_ptr(),
+                                                _stream(hits))
+    _raise_on(rc, "sigmoid_mismatches")
+    return int(hits.item())
 
 
 # ---------------------------------------------------------------------------

@@ -270,8 +270,10 @@ def kernel_phase(seg, failures: list):
 
 
 def dense_kernel_phase(batch, failures: list):
-    """K3/K4/K5a against their plain versions at the dense shapes of
-    `batch`, with its real slot masks folded into random logits."""
+    """K3/K4/K5a/K5b against their plain versions at the dense shapes of
+    `batch`, with its real slot masks folded into random logits; K5a/K5b
+    also launched twice (bit-identical) and with their launch plan read
+    on the card (``blocks_per_sm``, ``smem_bytes``, ``width``, ``path``)."""
     import torch
 
     from alignn_tpu_torch.ops import dense as dk
@@ -327,6 +329,7 @@ def dense_kernel_phase(batch, failures: list):
                 ops = 31.0 * pairs * f + 15.0 * rows * f
             got, ref = kern(*args), plain(*args)
             torch.cuda.synchronize()
+            occupancy = {}
             if key in ("K5a", "K5b"):
                 parts = ("dm2", "dbh") if key == "K5a" else \
                     ("c_m2", "c_bh", "c_g")
@@ -341,6 +344,12 @@ def dense_kernel_phase(batch, failures: list):
                     failures.append(f"{key} [{name}]: a masked pair row is "
                                     f"not exactly 0, or an output is not "
                                     f"finite")
+                # sums in a fixed order: a second launch gives the same bits
+                if not all(torch.equal(a, b)
+                           for a, b in zip(got, kern(*args))):
+                    failures.append(f"{key} [{name}]: two launches differ")
+                # the launch plan and its residency, read on the card
+                occupancy = dk.pair_bwd_occupancy(key, D, f, dtype)
             else:
                 err = compare(got, ref, name, failures, f"{key} {fn}")
             del got, ref
@@ -348,7 +357,7 @@ def dense_kernel_phase(batch, failures: list):
             out[name] = {**err, "ms": cuda_ms(lambda: kern(*args)),
                          "plain_ms": cuda_ms(lambda: plain(*args)),
                          "bound_ms": b_ms, "bound_by": b_by,
-                         "library_ms": None}
+                         "library_ms": None, **occupancy}
             del args
         results[key] = out
     return results
@@ -439,6 +448,35 @@ def fused_kernel_phase(batch, failures: list):
         del args, bargs, z
         torch.cuda.empty_cache()
     return results
+
+
+def k5_ptxas(log: str) -> list:
+    """Registers, stack and spills of dense.cu's K5a/K5b kernels, from its
+    ``nvcc -Xptxas -v`` build log, one entry per compiled instance."""
+    out, entry, name, props = [], None, "", ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            entry = None
+            for kind in ("pair_bwd2_slab", "pair_bwd_slab", "pair_bwd2_2pass",
+                         "pair_bwd_2pass"):
+                if kind in name:
+                    vec = name.split(kind)[1].split("Li")[1].split("E")[0]
+                    entry = {"kernel": kind, "vec": int(vec),
+                             "dtype": "bfloat16" if "bfloat16" in name
+                             else "float32"}
+                    out.append(entry)
+                    break
+        elif "Function properties for" in line:
+            props = line.split("Function properties for")[1].strip()
+        elif entry is not None and "spill stores" in line and props == name:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            entry.update(stack_bytes=nums[0], spill_store_bytes=nums[1],
+                         spill_load_bytes=nums[2])
+        elif entry is not None and "Used" in line:
+            entry["registers"] = int(line.split("Used")[1].split()[0])
+    return out
 
 
 def dense_shape(batch) -> dict:
@@ -1271,6 +1309,17 @@ def main() -> int:
           "ptxas": [ln.strip() for log in _build.BUILD_LOG.values()
                     for ln in log.splitlines() if "Used" in ln]})
     failures: list = []
+    emit({"phase": "ptxas_k5", "kernels": k5_ptxas(_build.build_log("dense"))})
+    from alignn_tpu_torch.ops import dense as dk
+
+    # dense.cu's sigmoid (a select below -88.75) against the exact one on
+    # every f32 bit pattern
+    mismatches = dk.sigmoid_mismatches()
+    emit({"phase": "sigmoid_select", "f32_patterns": 1 << 32,
+          "mismatches": mismatches})
+    if mismatches:
+        failures.append(f"dense.cu sigmoid differs from 1 / (1 + exp(-x)) "
+                        f"on {mismatches} f32 bit patterns")
 
     base = Calculator(path=MODEL_DIR)            # default device: cuda
     canon = {**base.config, "use_canonize": True}

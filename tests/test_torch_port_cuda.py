@@ -1,8 +1,10 @@
 """alignn_tpu_torch on the card: CUDA kernels against their plain versions.
 
-K1/K2 (``csrc/eggc.cu``), K3/K4/K5a/K5b (``csrc/dense.cu``) and K6/K7
-(``csrc/fused_lstage.cu``), then the Calculator and the E/F/S train step
-on the card against the port on the CPU, sparse, dense and fused dense.
+K1/K2 (``csrc/eggc.cu``), K3/K4/K5a/K5b (``csrc/dense.cu``, K5a/K5b
+also across their launch plans, with their occupancy and the sigmoid's
+bit-exact select) and K6/K7 (``csrc/fused_lstage.cu``), then the
+Calculator and the E/F/S train step on the card against the port on the
+CPU, sparse, dense and fused dense.
 
 Every test here is marked ``cuda`` and skips on a host without a GPU.
 This file imports torch and numpy only (the card's host has no JAX), so
@@ -208,6 +210,120 @@ def test_pair_kernels_refuse_a_block_too_large(cuda, kernel, D):
         else:
             fk.fused_lstage_bwd_cuda(pairs, w, v, bh, bh, bh, v, v, pairs,
                                      bh, D)
+
+
+# K5a/K5b across their launch plans (dense.cu `bwd_plan`).  Slab width W
+# and blocks an SM: K5a W 64 to D 13, W 32 (4 blocks to D 19, then 2) to
+# D 28, then W 16 and (f32) W 8; K5b W 64 to D 8, W 32 (4 blocks to D
+# 13, then 2) to D 19, then W 16 and (f32) W 8.  Two-pass from D 84
+# (K5a f32), 59 (K5a bf16, K5b f32) and 41 (K5b bf16).  layout: "dense"
+# contiguous, "strided" row stride 2F, "unaligned" row stride F + 1 and a
+# data pointer off 16 bytes (the scalar path).
+PAIR_BWD_CASES = [  # (nodes, D, F, dtype, layout)
+    (64, 1, 256, torch.float32, "dense"),
+    (64, 2, 256, torch.bfloat16, "strided"),
+    (40, 8, 256, torch.float32, "dense"),       # K5b: last D at W 64
+    (40, 9, 256, torch.float32, "strided"),     # K5b: W 32 from D 9
+    (40, 13, 256, torch.float32, "dense"),      # the training batch's D
+    (40, 13, 256, torch.bfloat16, "unaligned"),
+    (24, 14, 256, torch.bfloat16, "dense"),     # K5a: W 32 from D 14
+    (24, 18, 256, torch.float32, "strided"),    # the 512-atom bucket's D
+    (24, 18, 256, torch.bfloat16, "dense"),
+    (16, 19, 128, torch.bfloat16, "strided"),   # K5a: last D at 4 blocks
+    (16, 20, 128, torch.float32, "unaligned"),  # K5a: 2 blocks; K5b W 16
+    (3, 40, 64, torch.bfloat16, "dense"),       # K5b bf16: last slab D
+    (3, 41, 64, torch.bfloat16, "strided"),     # K5b bf16: two-pass
+    (2, 58, 64, torch.float32, "strided"),      # K5b f32: last slab D
+    (2, 58, 64, torch.bfloat16, "dense"),       # K5a bf16: last slab D
+    (2, 59, 64, torch.float32, "dense"),        # K5b f32: two-pass
+    (2, 59, 64, torch.bfloat16, "strided"),     # K5a bf16: two-pass
+    (2, 83, 32, torch.float32, "dense"),        # K5a f32: last slab D
+    (2, 84, 32, torch.float32, "unaligned"),    # K5a f32: two-pass
+    (30, 6, 40, torch.float32, "dense"),        # F = 40 of a 64-wide block
+    (30, 6, 72, torch.bfloat16, "strided"),     # a second block of 8 live
+    (30, 6, 42, torch.float32, "dense"),        # F % 4 != 0: scalar path
+]
+
+
+def _pair_table(rng, rows, f, dtype, layout, device):
+    if layout == "unaligned":
+        big = torch.tensor(rng.standard_normal((rows, f + 1)),
+                           device=device, dtype=torch.float32).to(dtype)
+        return big[:, 1:]
+    return _table(rng, rows, f, dtype, layout == "strided", device)
+
+
+def _pair_bwd_operands(rng, n, D, f, dtype, layout, device):
+    """(m2, bh, g, u, v) with node 0 fully masked and 20 % of the other
+    slots masked (folded into m2), and the pair mask."""
+    em = (rng.random(n * D) < 0.8).astype(np.float32)
+    em[:D] = 0.0
+    em_t = torch.tensor(em, device=device)
+    lg = (em_t.reshape(n, 1, D) * em_t.reshape(n, D, 1)).reshape(-1)
+    m2 = _pair_table(rng, n * D * D, f, dtype, layout, device)
+    m2.copy_(dk.fold_mask(m2, lg))            # in place: m2 keeps its layout
+    bh, g, v = (_pair_table(rng, n * D, f, dtype, layout, device)
+                for _ in range(3))
+    u = _pair_table(rng, n * D * D, f, dtype, layout, device)
+    return (m2, bh, g, u, v), lg
+
+
+@pytest.mark.parametrize("n,D,f,dtype,layout", PAIR_BWD_CASES)
+def test_pair_bwd_kernels_match_plain(cuda, n, D, f, dtype, layout):
+    """K5a and K5b against their plain versions (f32 1e-5, bf16 1e-2, times
+    max|plain|) on either side of every switch of their launch plans; the
+    fully masked node's dm2, dbh, c_m2, c_bh and c_g exactly 0 and every
+    output finite; two launches bit-identical."""
+    rng = np.random.default_rng(15)
+    (m2, bh, g, u, v), lg = _pair_bwd_operands(rng, n, D, f, dtype, layout,
+                                               cuda)
+    assert m2.stride(0) == bh.stride(0)
+    before = (dk.pair_aggregate_bwd_cuda.launches,
+              dk.pair_aggregate_bwd2_cuda.launches)
+    first = (*dk.pair_aggregate_bwd_cuda(m2, bh, g, D),
+             *dk.pair_aggregate_bwd2_cuda(m2, bh, g, u, v, D))
+    second = (*dk.pair_aggregate_bwd_cuda(m2, bh, g, D),
+              *dk.pair_aggregate_bwd2_cuda(m2, bh, g, u, v, D))
+    torch.cuda.synchronize()
+    assert (dk.pair_aggregate_bwd_cuda.launches,
+            dk.pair_aggregate_bwd2_cuda.launches) == (before[0] + 2,
+                                                      before[1] + 2)
+    refs = (*dk.pair_aggregate_bwd_plain(m2, bh, g, D),
+            *dk.pair_aggregate_bwd2_plain(m2, bh, g, u, v, D))
+    for out, again, ref in zip(first, second, refs):
+        _close_rel(out, ref, dtype)
+        assert torch.isfinite(out.float()).all()
+        assert torch.equal(out, again)
+    dm2, dbh, c_m2, c_bh, c_g = first
+    masked = lg == 0
+    assert torch.all(dm2[masked] == 0) and torch.all(c_m2[masked] == 0)
+    for x in (dbh, c_bh, c_g):
+        assert torch.all(x[:D] == 0)
+
+
+@pytest.mark.parametrize("kernel,dtype,D,width,blocks", [
+    ("K5a", torch.float32, 13, 64, 4), ("K5a", torch.float32, 14, 32, 4),
+    ("K5a", torch.float32, 18, 32, 4), ("K5a", torch.float32, 20, 32, 2),
+    ("K5a", torch.float32, 83, 8, 1), ("K5a", torch.float32, 84, 0, 1),
+    ("K5a", torch.bfloat16, 58, 16, 1), ("K5a", torch.bfloat16, 59, 0, 1),
+    ("K5b", torch.float32, 8, 64, 4), ("K5b", torch.float32, 13, 32, 4),
+    ("K5b", torch.float32, 18, 32, 2), ("K5b", torch.float32, 58, 8, 1),
+    ("K5b", torch.float32, 59, 0, 1), ("K5b", torch.bfloat16, 40, 16, 1),
+    ("K5b", torch.bfloat16, 41, 0, 1)])
+def test_pair_bwd_occupancy(cuda, kernel, dtype, D, width, blocks):
+    """The launch plan at F 256 read on the card: W (0 = two-pass) and at
+    least the resident blocks per SM that the plan sized its shared
+    memory for (registers must not cut them)."""
+    occ = dk.pair_bwd_occupancy(kernel, D, 256, dtype)
+    assert occ["width"] == width, occ
+    assert occ["blocks_per_sm"] >= blocks, occ
+    assert occ["smem_bytes"] <= 232448
+
+
+def test_sigmoid_select_is_exact_on_every_f32(cuda):
+    """dense.cu's sigmoid (0 below -88.75, else 1 / (1 + exp(-x))) equals
+    the exact 1 / (1 + exp(-x)) bit for bit on all 2^32 f32 patterns."""
+    assert dk.sigmoid_mismatches() == 0
 
 
 def test_dense_autograd_runs_the_kernels(cuda):
