@@ -2,8 +2,9 @@
 
 Counterpart of ``alignn_tpu/graph/build.py`` (host-side numpy, no torch):
 flat index arrays, edges sorted by dst, the line graph sorted by lg_dst.
-The neighbour search is the numpy supercell tiling; the JAX package's
-optional C++ cell list is not ported yet.
+The neighbour search is the numpy supercell tiling, for the k-NN, the
+radius and the jarvis radius strategies; the JAX package's optional C++
+cell list is not ported yet.
 
 Line-graph semantics match DGL's default ``backtracking=True``: an L-edge
 (e1 -> e2) exists for every ordered pair with dst(e1) == src(e2),
@@ -230,6 +231,29 @@ def radius_graph(atoms: Atoms, cutoff: float = 5.0, bond_tol: float = 0.5,
     raise ValueError(f"radius graph failed after {max_attempts} attempts")
 
 
+def radius_graph_jarvis(atoms: Atoms, cutoff: float = 4.0,
+                        cutoff_extra: float = 0.5, max_attempts: int = 10,
+                        atol: float = 1e-5):
+    """Per-atom sphere-query radius graph.  Unlike :func:`radius_graph` it
+    drops every self-image bond (i -> i in another cell), pads the search
+    radius by no `bond_tol`, and extends the cutoff by `cutoff_extra`
+    until every atom has an incident edge.  Returns (u, v, r, images)."""
+    for _ in range(max_attempts):
+        u, v, images, disp, _dist = _tiled_pairs(
+            atoms, cutoff, bond_tol=0.0, atol=atol)
+        keep = u != v
+        u, v, images, disp = u[keep], v[keep], images[keep], disp[keep]
+        present = np.zeros(atoms.num_atoms, dtype=bool)
+        present[u] = True
+        present[v] = True
+        if present.all() and u.size > 0:
+            return (u.astype(np.int32), v.astype(np.int32),
+                    disp, images.astype(np.float64))
+        cutoff += cutoff_extra
+    raise ValueError(
+        f"radius_graph_jarvis failed after {max_attempts} attempts")
+
+
 # ---------------------------------------------------------------------------
 # line graph
 # ---------------------------------------------------------------------------
@@ -284,6 +308,9 @@ def build_graph(atoms: Atoms, neighbor_strategy: str = "k-nearest",
     elif neighbor_strategy == "radius_graph":
         u, v, r, images = radius_graph(
             atoms, cutoff=cutoff, cutoff_extra=cutoff_extra)
+    elif neighbor_strategy == "radius_graph_jarvis":
+        # its own cutoff_extra (0.5), not build_graph's, as in JAX
+        u, v, r, images = radius_graph_jarvis(atoms, cutoff=cutoff)
     else:
         raise ValueError(f"unknown neighbor_strategy: {neighbor_strategy}")
 
@@ -318,10 +345,12 @@ ROCKSALT_FRAC = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5],
 ROCKSALT_ELEMENTS = ["Na", "Cl", "K", "Br", "Mg", "O", "Ca", "S"]
 
 
-def rocksalt_graphs(n: int, seed: int = 0, rattle: float = 0.02) -> list:
+def rocksalt_graphs(n: int, seed: int = 0, rattle: float = 0.02,
+                    **graph_kw) -> list:
     """`n` labelled, rattled 8-atom rocksalt cells (cubic, a = 4.2 + 0.3
-    N(0, 1) Å), each as a k-NN graph (12 neighbours, cutoff 8 Å): the
-    synthetic batch of ``bench.py``.
+    N(0, 1) Å), each as a k-NN graph (12 neighbours, cutoff 8 Å, or the
+    :func:`build_graph` arguments `graph_kw` give): the synthetic batch of
+    ``bench.py``.
 
     One numpy generator from `seed` draws, cell by cell: the lattice
     constant, the rattle of the fractional coordinates (`rattle` times
@@ -336,7 +365,7 @@ def rocksalt_graphs(n: int, seed: int = 0, rattle: float = 0.02) -> list:
         frac = ROCKSALT_FRAC + rattle * rng.standard_normal((8, 3))
         g = build_graph(Atoms(lattice_mat=np.eye(3) * a, frac_coords=frac,
                               elements=ROCKSALT_ELEMENTS),
-                        cutoff=8.0, max_neighbors=12)
+                        **{"cutoff": 8.0, "max_neighbors": 12, **graph_kw})
         g.target = np.array([rng.standard_normal()])
         g.forces = rng.standard_normal((8, 3)) * 0.1
         g.stress = np.eye(3) * 0.01

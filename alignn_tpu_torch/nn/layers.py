@@ -21,7 +21,8 @@ from alignn_tpu_torch.ops.basis import rbf_expand, rbf_params
 from alignn_tpu_torch.ops.dense import (dense_gated_aggregate,
                                         dense_pair_aggregate, fold_mask)
 from alignn_tpu_torch.ops.eggc import (gated_aggregate, gather_nodes,
-                                       permute_rows, sorted_gather)
+                                       permute_rows, sorted_gather,
+                                       weighted_aggregate)
 from alignn_tpu_torch.ops.fused_lstage import fused_pair_lstage
 
 # flax's Dense: y = x @ kernel + bias with torch's default init, which is
@@ -101,6 +102,12 @@ class EdgeGatedGraphConv(nn.Module):
     are the stage's static gather windows (0 = plain gather): with them the
     gathers, at every derivative order, run the windowed gather K8.
 
+    With soft edge weights w (``edge_weight``, the envelope-weighted
+    models) the gates are sigma(m) * w and the aggregation divides by
+    their sum plus ``SOFT_AGG_EPS`` (1e-3): a zero weight removes the edge
+    from both sums.  That branch runs the packed sums through K2
+    (:func:`weighted_aggregate`) and bypasses K1.
+
     With a :class:`DenseWiring` the node stage runs on the dense layout
     (aggregation K3), and :meth:`pair_stage` is the dense L-stage (K4), or
     with ``ALIGNN_TPU_FUSED_LSTAGE`` set the fused L-stage (K6, K7).
@@ -117,7 +124,8 @@ class EdgeGatedGraphConv(nn.Module):
 
     def forward(self, x: torch.Tensor, e: torch.Tensor, g: Incidence,
                 dense: Optional[DenseWiring] = None,
-                windows: Tuple[int, int, int] = (0, 0, 0)):
+                windows: Tuple[int, int, int] = (0, 0, 0),
+                edge_weight: Optional[torch.Tensor] = None):
         if dense is not None:
             return self._dense_node_stage(x, e, g, dense)
         f = self.features
@@ -132,7 +140,11 @@ class EdgeGatedGraphConv(nn.Module):
         # JAX's aggregation keeps its window only where its kernel runs
         # (edge_gated_aggregate_pallas: 128-row node tiles, F % 128 == 0)
         w_agg = w_dst if f % 128 == 0 and x.shape[0] % 128 == 0 else 0
-        h = gated_aggregate(m, bh_e, g.dst, w_agg)
+        if edge_weight is None:
+            h = gated_aggregate(m, bh_e, g.dst, w_agg)
+        else:
+            h = weighted_aggregate(
+                bh_e, torch.sigmoid(m) * edge_weight[:, None], g.dst)
         x_new = x + F.silu(self.norm_nodes(self.src_update(x) + h))
         e_new = e + F.silu(self.norm_edges(m))
         return x_new, e_new
@@ -218,13 +230,20 @@ class ALIGNNConv(nn.Module):
     def forward(self, x, y, z, g: Incidence, lg: Optional[Incidence],
                 dense: Optional[DenseWiring] = None,
                 windows: Tuple[int, int, int] = (0, 0, 0),
-                lg_windows: Tuple[int, int, int] = (0, 0, 0)):
+                lg_windows: Tuple[int, int, int] = (0, 0, 0),
+                edge_weight: Optional[torch.Tensor] = None,
+                lg_weight: Optional[torch.Tensor] = None):
+        """`edge_weight` [E] weighs the node stage's edges, `lg_weight`
+        [L] the line-graph stage's (soft weights; the sparse layout only,
+        as the model enforces)."""
         if dense is not None:
             # the dense L-stage is local pairs wired by rev: it reads no
             # line-graph index arrays
             x, m = self.node_update(x, y, g, dense)
             y, z = self.edge_update.pair_stage(m, z, dense)
             return x, y, z
-        x, m = self.node_update(x, y, g, windows=windows)
-        y, z = self.edge_update(m, z, lg, windows=lg_windows)
+        x, m = self.node_update(x, y, g, windows=windows,
+                                edge_weight=edge_weight)
+        y, z = self.edge_update(m, z, lg, windows=lg_windows,
+                                edge_weight=lg_weight)
         return x, y, z

@@ -5,7 +5,11 @@ sparse and the dense-neighbourhood layouts (a batch with ``dense_D > 0``,
 graph/dense.py).  Angle cosines are recomputed from the bond vectors `r`
 inside the forward, so the gradient of the energy with respect to `r`
 carries the 3-body terms; forces and the virial stress come from that
-gradient (:func:`atomwise_forward`).
+gradient (:func:`atomwise_forward`), or with ``include_pos_deriv`` from
+the gradient with respect to the atom positions.  Envelope-weighted
+models (``envelope_edge_weights``) weigh every aggregation by a smooth
+envelope of the bond lengths (:func:`envelope_weights`), sparse layout
+only.
 """
 
 from __future__ import annotations
@@ -23,7 +27,8 @@ from alignn_tpu_torch.nn.layers import (ALIGNNConv, Dense, DenseWiring,
                                         MLPLayer, RBFExpansion)
 from alignn_tpu_torch.ops.basis import (bond_cosines, bond_cosines_dense,
                                         cutoff_function_based_edges)
-from alignn_tpu_torch.ops.eggc import permute_rows
+from alignn_tpu_torch.ops.eggc import gather_nodes, permute_rows, \
+    sorted_gather
 from alignn_tpu_torch.ops.gather import windows_enabled
 from alignn_tpu_torch.ops.segment import graph_readout_mean, segment_sum
 
@@ -150,7 +155,8 @@ class _Trunk(nn.Module):
             setattr(self, f"gcn_layers_{i}",
                     EdgeGatedGraphConv(cfg.hidden_features))
 
-    def forward(self, batch: GraphBatch, x, y, z):
+    def forward(self, batch: GraphBatch, x, y, z, edge_weight=None,
+                lg_weight=None):
         dense = DenseWiring(batch.dense_D, batch.edge_mask, batch.lg_mask,
                             batch.rev) if batch.dense_D else None
         # the batch's static gather windows, read with the switch as JAX
@@ -163,10 +169,11 @@ class _Trunk(nn.Module):
             wins = lg_wins = (0, 0, 0)
         for i in range(self.alignn_layers):
             x, y, z = getattr(self, f"alignn_layers_{i}")(
-                x, y, z, batch.g_index, batch.lg_index, dense, wins, lg_wins)
+                x, y, z, batch.g_index, batch.lg_index, dense, wins, lg_wins,
+                edge_weight, lg_weight)
         for i in range(self.gcn_layers):
-            x, y = getattr(self, f"gcn_layers_{i}")(x, y, batch.g_index,
-                                                     dense, wins)
+            x, y = getattr(self, f"gcn_layers_{i}")(
+                x, y, batch.g_index, dense, wins, edge_weight)
         return x, y
 
 
@@ -182,10 +189,8 @@ class ALIGNNAtomWise(nn.Module):
 
     def __init__(self, cfg: ALIGNNAtomWiseConfig):
         super().__init__()
-        if cfg.envelope_edge_weights or cfg.extra_features:
-            raise NotImplementedError(
-                "envelope_edge_weights and extra_features are not ported "
-                "yet")
+        if cfg.extra_features:
+            raise NotImplementedError("extra_features is not ported yet")
         self.cfg = cfg
         self.embeddings = _Embeddings(cfg)
         self.trunk = _Trunk(cfg)
@@ -215,8 +220,42 @@ class ALIGNNAtomWise(nn.Module):
             else:
                 rbf_input = envelope    # bondlength replaced by env
         x, y, z = self.embeddings(batch, rbf_input, cosines, edge_scale)
-        x, _y = self.trunk(batch, x, y, z)
+        edge_w = lg_w = None
+        if cfg.envelope_edge_weights:
+            edge_w, lg_w = envelope_weights(cfg, batch, bondlength)
+        x, _y = self.trunk(batch, x, y, z, edge_w, lg_w)
         return atomwise_heads(self, batch, x, bondlength)
+
+
+def envelope_weights(cfg: ALIGNNAtomWiseConfig, batch: GraphBatch,
+                     bondlength: torch.Tensor):
+    """The aggregation weights of an envelope-weighted model: the smooth
+    envelope at the graph cutoff on each bond, edge_w [E], and on each
+    bond pair the product of its two bonds' weights, lg_w [L].  Both are
+    differentiable in r, so the forces carry d(envelope)/dr, and a bond
+    crossing the cutoff leaves the energy continuous.  The pair gathers
+    transpose into K2 (sorted dst, argsorted src)."""
+    if cfg.envelope_cutoff <= 0:
+        raise ValueError(
+            "envelope_edge_weights requires envelope_cutoff > 0 "
+            "(set it to the graph-build cutoff)")
+    if batch.dense_D:
+        raise ValueError(
+            "envelope_edge_weights runs the sparse layout (the "
+            "dense pair kernels take binary masks, not soft "
+            "weights); build with dense_neighborhoods=false")
+    # evaluated in f64: the polynomial's terms (up to 35 x^6 at exponent
+    # 5) cancel towards its triple root at the cutoff, and in f32 that
+    # rounding alone moves the forces of Si_envelope as far as the
+    # serving tolerance against the reference package
+    edge_w = cutoff_function_based_edges(
+        bondlength.double(), inner_cutoff=cfg.envelope_cutoff,
+        exponent=cfg.exponent).to(bondlength.dtype) * batch.edge_mask
+    lg, col = batch.lg_index, edge_w[:, None]
+    w_src = gather_nodes(col, lg.src, lg.src_perm, lg.src_perm_inv,
+                         lg.src_sorted)
+    w_dst = sorted_gather(col, lg.dst)
+    return edge_w, (w_src * w_dst)[:, 0] * batch.lg_mask
 
 
 def init_parameters(model: nn.Module,
@@ -316,7 +355,7 @@ def atomwise_forward(model: ALIGNNAtomWise, batch: GraphBatch,
         res["stresses"] = batch.r.new_zeros((num_graphs, 3, 3))
         return res
     if cfg.include_pos_deriv:
-        raise NotImplementedError("include_pos_deriv is not ported yet")
+        return _pos_deriv_forward(model, batch, create_graph)
 
     r = batch.r.detach().requires_grad_(True)
     with torch.enable_grad():
@@ -351,4 +390,26 @@ def atomwise_forward(model: ALIGNNAtomWise, batch: GraphBatch,
                               [:, None, None]))
     else:
         res["stresses"] = batch.r.new_zeros((num_graphs, 3, 3))
+    return res
+
+
+def _pos_deriv_forward(model: ALIGNNAtomWise, batch: GraphBatch,
+                       create_graph: bool) -> Dict[str, torch.Tensor]:
+    """``include_pos_deriv``: forces from the gradient with respect to the
+    fractional coordinates, mapped to cartesian by inv(lattice)^T per
+    node.  As in the JAX package (after the reference) the energy it
+    differentiates is multiplied by the batch's total node count, and the
+    stress is zero."""
+    cfg = model.cfg
+    frac = batch.frac_coords.detach().requires_grad_(True)
+    with torch.enable_grad():
+        res = model(batch, compute_cartesian_r(batch, frac))
+        energy = torch.sum(res["en_out"] * batch.graph_mask) \
+            * batch.n_nodes.sum()
+        (g_frac,) = torch.autograd.grad(energy, frac,
+                                        create_graph=create_graph)
+    inv_lat = torch.linalg.inv(batch.lattice)[batch.node_graph]
+    g_cart = torch.einsum("ni,nji->nj", g_frac, inv_lat)
+    res["grad"] = cfg.grad_multiplier * g_cart * batch.node_mask[:, None]
+    res["stresses"] = batch.r.new_zeros((batch.graph_mask.shape[0], 3, 3))
     return res

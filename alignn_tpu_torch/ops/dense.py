@@ -34,11 +34,12 @@ numerator, the denominator and every gradient.
 K3's second order is autograd through its plain backward, as in JAX,
 whose ``gated_aggregate_bwd`` is opt-in and has no kernel.
 
-All four kernels are in ``csrc/dense.cu``; K5a and K5b stage a node's
-pair rows in shared memory once (the slab path) and keep their first,
-two-pass design for D too large for a slab (:func:`pair_bwd_occupancy`
-reads which path and how many blocks per SM a shape gets).  Bound on an
-H100 SXM at the
+All four kernels are in ``csrc/dense.cu``.  K3 splits a node's D rows
+over S sub-threads of each 16-byte feature lane, their partial sums
+added in a fixed order in shared memory.  K5a and K5b stage a node's pair rows in shared
+memory once (the slab path) and keep their first, two-pass design for D
+too large for a slab (:func:`pair_bwd_occupancy` reads which path and
+how many blocks per SM a shape gets).  Bound on an H100 SXM at the
 512-atom dense shape (N 768, D 18, F 256, f32), all by bytes at
 3.35 TB/s: K3 29 MB (0.009 ms), K4 283 MB (0.085 ms), K5a 552 MB
 (0.165 ms), K5b 835 MB (0.249 ms).

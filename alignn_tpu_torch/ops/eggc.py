@@ -15,6 +15,9 @@ over dst-sorted edges, so a segment is the contiguous row range
   dst-side gather transposes into K2.  ``gather_nodes`` sends the
   transpose of the unsorted src / lg_src gathers through K2 by the
   precomputed argsort permutation (``permute_rows``).
+- ``weighted_aggregate``: the same normalised sum for gates that carry
+  soft edge weights (the envelope-weighted models); its packed sums run
+  through K2, so K1 is bypassed.
 - Each gather and segment sum takes the static gather window of its
   index array (``window``, 0 = none), carried into every VJP as JAX
   carries it: with a usable window the forward gathers run the windowed
@@ -351,3 +354,26 @@ def gated_aggregate(m: torch.Tensor, bh: torch.Tensor, seg: Segments,
     ``[g/den | -g h/den]`` to the edges through K8.
     """
     return _GatedAggregate.apply(m, bh, seg, window)
+
+
+# the soft-weight sums divide by sum + 1e-3 (JAX's envelope-mode
+# soft_agg_eps): with K1's 1e-6 the f32 grad-of-grad of a nearly empty
+# segment overflows
+SOFT_AGG_EPS = 1e-3
+
+
+def weighted_aggregate(bh: torch.Tensor, sigma: torch.Tensor,
+                       seg: Segments) -> torch.Tensor:
+    """h[n] = sum_e sigma_e bh_e / (sum_e sigma_e + SOFT_AGG_EPS) over
+    sorted dst, for gates that carry soft edge weights
+    (sigma = sigmoid(m) * w, the envelope-weighted models; JAX
+    ``edge_gated_aggregate``).
+
+    The packed ``[sigma bh | sigma]`` table is one sorted segment sum
+    (K2), whose VJP is :func:`sorted_gather` and whose second order is
+    K2 again; on the CPU it is the plain index_add.  Unlike K1 the gates
+    come in as values, so the weights are the caller's.
+    """
+    f = bh.shape[-1]
+    summed = sorted_segment_sum(torch.cat([bh * sigma, sigma], dim=-1), seg)
+    return summed[:, :f] / (summed[:, f:] + SOFT_AGG_EPS)

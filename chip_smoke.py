@@ -54,7 +54,20 @@ Phases:
    with the switch on (12 steps) against the unwindowed sparse step and,
    on 8 cells, the CPU port; ``loader``: one shuffled epoch of the port's
    ``BucketedLoader`` (``worst_case_spec``, batch 64) over 256 rocksalt
-   cells through the windowed train step, with every batch's windows.
+   cells through the windowed train step, with every batch's windows;
+9. the envelope-weighted potentials: ``envelope_slice`` serves
+   ``docs/mlearn_r5/Si_envelope`` (4+4/256, radius 4.5 A) on the three Si
+   cells and ``Cu_envelope`` on a rattled 108-atom fcc cell, each against
+   the port on the CPU, launching K2 (their soft sums and gather
+   transposes) and no other kernel, then K2 against its plain version
+   at the si512 call's own segments; ``envelope_train`` runs the E/F/S
+   train step of an envelope model on the first 16 of ``bench.py``'s
+   rocksalt cells built with the envelope potentials' graph, 2 warm-up
+   and 10 timed steps, the first against the same step on the CPU port.
+
+K3 is also launched twice at both dense shapes (bit-identical), with its
+fully masked (padded) nodes exactly 0 and one fill of its output timed
+beside it; every dense kernel's entry carries its share of the bound.
 
 Prints JSON lines; the last line is ``{"ok": true, "device": {...}}``.
 Exits non-zero, without that line, on any failed check, and when no CUDA
@@ -271,9 +284,12 @@ def kernel_phase(seg, failures: list):
 
 def dense_kernel_phase(batch, failures: list):
     """K3/K4/K5a/K5b against their plain versions at the dense shapes of
-    `batch`, with its real slot masks folded into random logits; K5a/K5b
-    also launched twice (bit-identical) and with their launch plan read
-    on the card (``blocks_per_sm``, ``smem_bytes``, ``width``, ``path``)."""
+    `batch`, with its real slot masks folded into random logits, and
+    their share of the bound; K3 and K5a/K5b also launched twice
+    (bit-identical), K3 with its fully masked (padded) nodes exactly 0 and
+    the time of one fill of its output beside it, K5a/K5b with their
+    launch plan read on the card (``blocks_per_sm``, ``smem_bytes``,
+    ``width``, ``path``)."""
     import torch
 
     from alignn_tpu_torch.ops import dense as dk
@@ -330,6 +346,20 @@ def dense_kernel_phase(batch, failures: list):
             got, ref = kern(*args), plain(*args)
             torch.cuda.synchronize()
             occupancy = {}
+            if key == "K3":
+                # padded nodes have every slot masked: exactly 0; a second
+                # launch gives the same bits (fixed-order partial sums)
+                empty = batch.edge_mask.reshape(n, D).sum(dim=1) == 0
+                if not bool((got[empty] == 0).all()) or \
+                        not bool(torch.isfinite(got.float()).all()):
+                    failures.append(f"K3 [{name}]: a fully masked node is "
+                                    f"not exactly 0, or h is not finite")
+                if not torch.equal(got, kern(*args)):
+                    failures.append(f"K3 [{name}]: two launches differ")
+                # a yardstick of the timer's floor: one fill of K3's output
+                occupancy = {"masked_nodes": int(empty.sum().item()),
+                             "fill_output_ms": cuda_ms(
+                                 lambda: torch.empty_like(got).fill_(1.0))}
             if key in ("K5a", "K5b"):
                 parts = ("dm2", "dbh") if key == "K5a" else \
                     ("c_m2", "c_bh", "c_g")
@@ -354,10 +384,12 @@ def dense_kernel_phase(batch, failures: list):
                 err = compare(got, ref, name, failures, f"{key} {fn}")
             del got, ref
             b_ms, b_by = bound(nbytes, ops)
-            out[name] = {**err, "ms": cuda_ms(lambda: kern(*args)),
+            ms = cuda_ms(lambda: kern(*args))
+            out[name] = {**err, "ms": ms,
                          "plain_ms": cuda_ms(lambda: plain(*args)),
                          "bound_ms": b_ms, "bound_by": b_by,
-                         "library_ms": None, **occupancy}
+                         "bound_share": b_ms / ms, "library_ms": None,
+                         **occupancy}
             del args
         results[key] = out
     return results
@@ -588,10 +620,15 @@ def si_cells():
 # a train step (which adds K5b, the second order of K4).  Serving builds no
 # gather windows, so no serving layout launches K8; "wsparse" is the sparse
 # layout with ALIGNN_TPU_ENABLE_WGATHER set.
+# "envelope" is the sparse layout of an envelope-weighted model: its soft
+# sums and gather transposes run K2, and nothing else.
+NOT_K2 = ("K1", "K3", "K4", "K5a", "K5b", "K6", "K7", "K8")
 LAYOUT_KERNELS = {"sparse": (("K1", "K2"), ("K6", "K7", "K8")),
                   "dense": (("K3", "K4", "K5a"), ("K1", "K6", "K7", "K8")),
-                  "fused": (("K3", "K6", "K7"), ("K1", "K4", "K5a", "K8"))}
+                  "fused": (("K3", "K6", "K7"), ("K1", "K4", "K5a", "K8")),
+                  "envelope": (("K2",), NOT_K2)}
 TRAIN_KERNELS = {"sparse": LAYOUT_KERNELS["sparse"],
+                 "envelope": LAYOUT_KERNELS["envelope"],
                  "dense": (("K3", "K4", "K5a", "K5b"),
                            ("K1", "K6", "K7", "K8")),
                  "fused": (("K3", "K6", "K7"), ("K1", "K4", "K5a", "K5b",
@@ -602,8 +639,9 @@ TRAIN_KERNELS = {"sparse": LAYOUT_KERNELS["sparse"],
 
 def run_cells(new_calc, cells, layout: str, failures: list):
     """Drive a fresh Calculator per cell: 2 warm-up and 5 timed calls,
-    then the stage breakdown.  `layout` is sparse, dense or fused (dense
-    with ALIGNN_TPU_FUSED_LSTAGE set).  Returns [(row, atoms, result)]."""
+    then the stage breakdown.  `layout` is sparse, envelope (sparse, an
+    envelope-weighted model), dense or fused (dense with
+    ALIGNN_TPU_FUSED_LSTAGE set).  Returns [(row, atoms, result)]."""
     import torch
 
     rows = []
@@ -648,8 +686,8 @@ def run_cells(new_calc, cells, layout: str, failures: list):
             failures.append(f"{name}: non-finite or misshaped output")
         if row["abs_sum_force"] > 1e-3:
             failures.append(f"{name}: |sum F| = {row['abs_sum_force']}")
-        if layout != "sparse" and (calc._spec is None
-                                   or calc._spec.dense_D == 0):
+        if layout in ("dense", "fused") and (calc._spec is None
+                                             or calc._spec.dense_D == 0):
             failures.append(f"{name}: the dense Calculator ran sparse")
         need, banned = LAYOUT_KERNELS[layout]
         if any(per_call[k] <= 0 for k in need) or \
@@ -769,16 +807,17 @@ TRAIN_CFG = dict(  # bench.py's model and loss weights, full f32
 TRAIN_TOL = {"loss_rel": 1e-4, "grad_rel": 1e-3, "grad_abs": 1e-7}
 
 
-def first_step(weights, batch):
+def first_step(weights, batch, cfg=TRAIN_CFG):
     """(loss components, gradient of every parameter) of one train step
-    of a fresh model from `weights` on `batch`'s device."""
+    of a fresh model of config `cfg` from `weights` on `batch`'s
+    device."""
     from alignn_tpu_torch.nn.models import (ALIGNNAtomWise,
                                             ALIGNNAtomWiseConfig)
     from alignn_tpu_torch.train.optim import build_optimizer
     from alignn_tpu_torch.train.state import (create_train_state,
                                               make_train_step)
 
-    model = ALIGNNAtomWise(ALIGNNAtomWiseConfig(**TRAIN_CFG))
+    model = ALIGNNAtomWise(ALIGNNAtomWiseConfig(**cfg))
     model.load_state_dict(weights)
     state = create_train_state(model, batch,
                                build_optimizer("adamw", 1e-3, 1e-5))
@@ -821,11 +860,12 @@ def train_batches(gs, device):
 
 
 def train_run(weights, batch, layout: str, failures: list, steps: int = 12,
-              warmup: int = 2):
-    """`steps` E/F/S train steps of a fresh model from `weights` on
-    `batch`, the first `warmup` untimed: ms per step, edges per second
-    over the timed window, launches per step, peak memory, one profiled
-    step.  Returns (row, first step's losses and gradients, launches)."""
+              warmup: int = 2, cfg=TRAIN_CFG):
+    """`steps` E/F/S train steps of a fresh model of config `cfg` from
+    `weights` on `batch`, the first `warmup` untimed: ms per step, edges
+    per second over the timed window, launches per step, peak memory, one
+    profiled step.  Returns (row, first step's losses and gradients,
+    launches)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -835,7 +875,7 @@ def train_run(weights, batch, layout: str, failures: list, steps: int = 12,
     from alignn_tpu_torch.train.state import (create_train_state,
                                               make_train_step)
 
-    model = ALIGNNAtomWise(ALIGNNAtomWiseConfig(**TRAIN_CFG))
+    model = ALIGNNAtomWise(ALIGNNAtomWiseConfig(**cfg))
     model.load_state_dict(weights)
     state = create_train_state(model, batch,
                                build_optimizer("adamw", 1e-3, 1e-5))
@@ -1230,6 +1270,163 @@ def loader_phase(weights, failures: list):
     return row
 
 
+ENVELOPE_DIRS = {el: os.path.join(REPO, "docs", "mlearn_r5",
+                                  f"{el}_envelope") for el in ("Si", "Cu")}
+ENVELOPE_TRAIN_CFG = {**TRAIN_CFG, "envelope_edge_weights": True,
+                      "envelope_cutoff": 4.5}
+# bench.py's 64 cells with the envelope potentials' radius graph hold
+# 825,754 L-edges, which at the sparse step's ~130 KB a row would take
+# about 107 GB: the first 16 are trained
+ENVELOPE_TRAIN_CELLS = 16
+
+
+def rattled_fcc(n: int, a: float = 3.61):
+    """n x n x n conventional fcc Cu cells, rattled as the Si cells."""
+    from alignn_tpu_torch.chem.atoms import Atoms
+
+    fcc = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]])
+    cells = np.array([[i, j, k] for i in range(n) for j in range(n)
+                      for k in range(n)])
+    frac = ((fcc[None] + cells[:, None]) / n).reshape(-1, 3)
+    lat = np.eye(3) * a * n
+    cart = frac @ lat + np.random.default_rng(0).normal(0.0, 0.03,
+                                                        frac.shape)
+    return Atoms(lattice_mat=lat, frac_coords=cart @ np.linalg.inv(lat),
+                 elements=["Cu"] * len(frac))
+
+
+def envelope_slice(failures: list):
+    """The envelope-weighted potentials of round 5 at full width on the
+    card: ``Si_envelope`` (4+4/256, radius 4.5 A) on the three Si cells,
+    ``Cu_envelope`` (2+4/256) on a rattled 108-atom fcc cell; each cell's
+    E/F/S against the port on the CPU at the serving limits.  Counts from
+    0 over the four cells; they must launch K2 and no other kernel.  The
+    graph stage of these radius potentials reuses the skin candidate set;
+    ``graph_first_call_ms`` is a fresh Calculator's first build.  Then K2
+    against its plain version at the si512 call's own segments
+    (:func:`envelope_k2_phase`).  Returns (rows, launches, K2 checks)."""
+    from alignn_tpu_torch.ff.calculator import Calculator
+
+    cells = {"Si": si_cells(), "Cu": [("cu108_rattled", rattled_fcc(3))]}
+    bases = {el: Calculator(path=d) for el, d in ENVELOPE_DIRS.items()}
+    rows = {}
+    reset_launches()
+    for el, base in bases.items():
+        rows[el] = run_cells(
+            lambda b=base: Calculator(model=b.model, config=b.config),
+            cells[el], "envelope", failures)
+    launches = read_launches()
+    for el, d in ENVELOPE_DIRS.items():
+        cpu = Calculator(path=d, device="cpu")
+        check_against(rows[el], lambda c=cpu: c, "cpu_port", failures)
+        for row, atoms, _res in rows[el]:
+            # the radius graph's stage above reuses the skin candidate set;
+            # a fresh Calculator's first call builds it (cutoff + skin)
+            t = time.perf_counter()
+            Calculator(model=bases[el].model,
+                       config=bases[el].config).graph_for(atoms)
+            row["graph_first_call_ms"] = (time.perf_counter() - t) * 1e3
+    si512 = dict(cells["Si"])["si512_rattled"]
+    calc = Calculator(model=bases["Si"].model, config=bases["Si"].config)
+    k2 = envelope_k2_phase(calc.batch_for(calc.graph_for(si512)), failures)
+    return rows["Si"] + rows["Cu"], launches, k2
+
+
+def envelope_k2_phase(batch, failures: list) -> dict:
+    """K2 against its plain version on the segments an envelope model's
+    batch (`batch`, one Si_envelope si512 call) gives it: the dst
+    segments of the node stage and of the line-graph stage, where the soft
+    sums run K2 at F 512 (the packed [sigma w bh | sigma w] of the 256
+    hidden features), and their src_sorted segments, where the gather
+    transposes run K2 at F 256 and, for the pair weights, F 1.  Dyadic
+    inputs as in `kernel_phase`, so every sum is exact; f32 and bf16, each
+    with its time and bound."""
+    import torch
+
+    from alignn_tpu_torch.ops import eggc as ek
+
+    gen = torch.Generator(device=batch.r.device).manual_seed(2)
+    sites = {"g_dst": batch.g_index.dst,
+             "g_src_sorted": batch.g_index.src_sorted,
+             "lg_dst": batch.lg_index.dst,
+             "lg_src_sorted": batch.lg_index.src_sorted}
+    results = {}
+    for site, seg in sites.items():
+        rows, n = seg.ids.shape[0], seg.num
+        for f in (512, 256, 1):
+            x32 = torch.randint(-64, 65, (rows, f), device=seg.ids.device,
+                                generator=gen).float() / 16
+            out = {"rows": rows, "segments": n, "features": f}
+            for dtype in (torch.float32, torch.bfloat16):
+                name = str(dtype).split(".")[1]
+                x = x32.to(dtype)
+                got = ek.sorted_segment_sum_cuda(x, seg)
+                ref = ek.sorted_segment_sum_plain(x, seg)
+                torch.cuda.synchronize()
+                es = x.element_size()
+                b_ms, b_by = bound(rows * f * es + 4 * (n + 1) + n * f * es,
+                                   1.0 * rows * f)
+                ms = cuda_ms(lambda: ek.sorted_segment_sum_cuda(x, seg))
+                out[name] = {
+                    **compare(got, ref, name, failures,
+                              f"K2 sorted_segment_sum envelope {site} F {f}"),
+                    "ms": ms,
+                    "plain_ms": cuda_ms(
+                        lambda: ek.sorted_segment_sum_plain(x, seg)),
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "bound_share": b_ms / ms}
+            results[f"{site}_F{f}"] = out
+    return results
+
+
+def envelope_train_phase(failures: list):
+    """The E/F/S train step of an envelope-weighted model (bench.py's
+    4+4/256 and loss weights, envelope at 4.5 A, random weights from seed
+    0, f32) on bench.py's rocksalt cells built with the envelope
+    potentials' graph (radius 4.5 A, no canonisation), the first
+    ENVELOPE_TRAIN_CELLS of the 64: 2 warm-up and 10 timed steps, and the
+    first of them against the same step of the port on the CPU at the
+    training limits.  Returns (row, launches per step)."""
+    import torch
+
+    from alignn_tpu_torch.graph.batch import BucketSpec, batch_graphs
+    from alignn_tpu_torch.graph.build import rocksalt_graphs
+    from alignn_tpu_torch.nn.models import (ALIGNNAtomWise,
+                                            ALIGNNAtomWiseConfig,
+                                            init_parameters)
+
+    cfg = ENVELOPE_TRAIN_CFG
+    graphs = rocksalt_graphs(64, seed=0, neighbor_strategy="radius_graph",
+                             cutoff=4.5, use_canonize=False)
+    all_l = sum(g.num_lg_edges for g in graphs)
+    graphs = graphs[:ENVELOPE_TRAIN_CELLS]
+    weights = init_parameters(ALIGNNAtomWise(ALIGNNAtomWiseConfig(**cfg)),
+                              torch.Generator().manual_seed(0)).state_dict()
+
+    def batch_on(gs, device):
+        return batch_graphs(gs, BucketSpec.tight_for_batch(gs), device)
+
+    batch = batch_on(graphs, torch.device("cuda"))
+    row, first, launches = train_run(weights, batch, "envelope", failures,
+                                     cfg=cfg)
+    del batch
+    torch.cuda.empty_cache()
+    # the timed batch's first step against the same step on the CPU
+    t = time.perf_counter()
+    cpu_first = first_step(weights, batch_on(graphs, torch.device("cpu")),
+                           cfg)
+    cpu_s = time.perf_counter() - t
+    check = step_diff(first, cpu_first,
+                      f"envelope {len(graphs)} cells card vs CPU", failures)
+    return {"cell": "envelope_rocksalt_b16", "config": cfg,
+            "graph": "radius_graph 4.5 A, use_canonize false",
+            "cells": len(graphs), "lg_edges_of_64_cells": all_l,
+            "optimizer": "adamw lr 1e-3 wd 1e-5, no decay mask",
+            "precision": "f32 (TF32 off)", "tolerances": TRAIN_TOL,
+            "first_step_vs_cpu_port": {**check, "cpu_step_s": cpu_s},
+            "envelope": row}, launches
+
+
 KERNELS = (  # id, name, source, replaces
     ("K1", "eggc_gated_aggregate", "alignn_tpu_torch/csrc/eggc.cu",
      "alignn_tpu/ops/pallas_eggc.py:45"),
@@ -1418,6 +1615,16 @@ def main() -> int:
     emit({"phase": "wgather_train", **wtrain_row})
     with switch_env(WGATHER_ENV):
         emit({"phase": "loader", **loader_phase(weights, failures)})
+    torch.cuda.empty_cache()
+
+    # the envelope-weighted potentials: serving (counts from 0 over its
+    # four cells), then training (counts from 0 over its 12 steps)
+    erows, envelope_launches, envelope_k2 = envelope_slice(failures)
+    for row, _a, _r in erows:
+        emit({"phase": "envelope_slice", **row})
+    torch.cuda.empty_cache()
+    erow, train_launches["envelope"] = envelope_train_phase(failures)
+    emit({"phase": "envelope_train", **erow})
 
     line = []
     for key, name, source, replaces in KERNELS:
@@ -1445,6 +1652,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": launches[key],
+            "launches_envelope_slice": envelope_launches[key],
             "launches_per_train_step": {
                 layout: per_step[key]
                 for layout, per_step in train_launches.items()},
@@ -1464,6 +1672,7 @@ def main() -> int:
                                                     **train_kernels[key]}}}
                if dense else {}),
             **({"backward": r["backward"]} if "backward" in r else {}),
+            **({"at_envelope_si512": envelope_k2} if key == "K2" else {}),
             **({"host_us": f32["host_us"],
                 "library_host_us": f32["library_host_us"],
                 "dst_float32": r["dst_float32"], "sites": r["checks"]}

@@ -1,10 +1,11 @@
 """alignn_tpu_torch on the card: CUDA kernels against their plain versions.
 
-K1/K2 (``csrc/eggc.cu``), K3/K4/K5a/K5b (``csrc/dense.cu``, K5a/K5b
-also across their launch plans, with their occupancy and the sigmoid's
-bit-exact select) and K6/K7 (``csrc/fused_lstage.cu``), then the
+K1/K2 (``csrc/eggc.cu``, K2 also on the envelope models' soft-weight
+sums), K3/K4/K5a/K5b (``csrc/dense.cu``, K3 and K5a/K5b also across
+their splits, K5a/K5b with their occupancy and the sigmoid's bit-exact
+select) and K6/K7 (``csrc/fused_lstage.cu``), then the
 Calculator and the E/F/S train step on the card against the port on the
-CPU, sparse, dense and fused dense.
+CPU, sparse, envelope-weighted, dense and fused dense.
 
 Every test here is marked ``cuda`` and skips on a host without a GPU.
 This file imports torch and numpy only (the card's host has no JAX), so
@@ -324,6 +325,127 @@ def test_sigmoid_select_is_exact_on_every_f32(cuda):
     """dense.cu's sigmoid (0 below -88.75, else 1 / (1 + exp(-x))) equals
     the exact 1 / (1 + exp(-x)) bit for bit on all 2^32 f32 patterns."""
     assert dk.sigmoid_mismatches() == 0
+
+
+K3_CASES = [  # (nodes, D, F, dtype, layout)
+    (512, 13, 256, torch.float32, "contiguous"),   # the training batch
+    (512, 13, 256, torch.bfloat16, "contiguous"),
+    (768, 18, 256, torch.float32, "contiguous"),   # the 512-atom cell
+    (768, 18, 256, torch.bfloat16, "contiguous"),
+    (300, 1, 256, torch.float32, "contiguous"),
+    (300, 1, 128, torch.bfloat16, "strided"),
+    (64, 32, 256, torch.float32, "strided"),
+    (64, 32, 256, torch.bfloat16, "contiguous"),
+    (40, 13, 42, torch.float32, "unaligned"),      # F % 4: the VEC 1 path
+    (40, 18, 64, torch.bfloat16, "unaligned"),     # row stride F + 1
+    (9, 1, 40, torch.float32, "unaligned"),
+    (5, 200, 64, torch.float32, "contiguous"),     # 13 batches of loads
+]
+
+
+def _k3_operands(rng, n, D, f, dtype, layout, device):
+    """Masked logits (node 0 fully masked) and bh, laid out as asked: an
+    unaligned table has a row stride of F + 1 elements."""
+    em = (rng.random(n * D) < 0.8).astype(np.float32)
+    em[:D] = 0.0
+    if layout == "unaligned":
+        def table():
+            big = torch.tensor(rng.standard_normal((n * D, f + 1)),
+                               device=device, dtype=torch.float32)
+            return big.to(dtype)[:, 1:]
+    else:
+        def table():
+            return _table(rng, n * D, f, dtype, layout == "strided", device)
+    m = dk.fold_mask(table(), torch.tensor(em, device=device))
+    return m, table()
+
+
+@pytest.mark.parametrize("n,D,f,dtype,layout", K3_CASES)
+def test_dense_gated_aggregate_matches_plain(cuda, n, D, f, dtype, layout):
+    """K3 against its plain version (f32 1e-5, bf16 1e-2, times
+    max|plain|), its fully masked node exactly 0, every output finite, and
+    a second launch bit-identical (the split's partial sums meet in a
+    fixed order)."""
+    m, bh = _k3_operands(np.random.default_rng(10), n, D, f, dtype, layout,
+                         cuda)
+    before = dk.dense_gated_aggregate_cuda.launches
+    h = dk.dense_gated_aggregate_cuda(m, bh, D)
+    torch.cuda.synchronize()
+    assert dk.dense_gated_aggregate_cuda.launches == before + 1
+    _close_rel(h, dk.dense_gated_aggregate_plain(m, bh, D), dtype)
+    assert torch.all(h[0] == 0)
+    assert torch.isfinite(h.float()).all()
+    assert torch.equal(h, dk.dense_gated_aggregate_cuda(m, bh, D))
+
+
+def _soft_problem(device, n=256, e=3000, f=128, seed=12):
+    """Sorted segments (the last one empty), bh, logits and soft weights
+    in [0, 1] with exact zeros, as the envelope gives them."""
+    rng = np.random.default_rng(seed)
+    dst = np.sort(rng.integers(0, n - 1, size=e))
+    w = rng.random(e)
+    w[rng.random(e) < 0.2] = 0.0
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32, device=device)
+
+    return (_seg(dst, n, device), t(rng.standard_normal((e, f))),
+            t(rng.standard_normal((e, f))), t(w),
+            t(rng.standard_normal((n, f))))
+
+
+def test_weighted_aggregate_runs_k2(cuda):
+    """The envelope models' soft-weight aggregation: its packed sums run
+    K2 on the card (and no K1), and its value, gradient and gradient of
+    the gradient match the plain route on the CPU (rtol 1e-5, atol 1e-5
+    x max|CPU|)."""
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        seg, bh, m, w, g = _soft_problem(dev)
+        bh.requires_grad_(True)
+        m.requires_grad_(True)
+        k = (ek.gated_aggregate_cuda.launches,
+             ek.sorted_segment_sum_cuda.launches)
+        h = ek.weighted_aggregate(bh, torch.sigmoid(m) * w[:, None], seg)
+        dbh, dm = torch.autograd.grad((h * g).sum(), (bh, m),
+                                      create_graph=True)
+        second = torch.autograd.grad((dbh ** 2).sum() + (dm * g[:1]).sum(),
+                                     (bh, m))
+        out[dev.type] = [x.detach().cpu() for x in (h, dbh, dm, *second)]
+        if dev.type == "cuda":
+            # the forward's sums, then the transpose of the first order's
+            # gather in the second
+            assert ek.gated_aggregate_cuda.launches == k[0]
+            assert ek.sorted_segment_sum_cuda.launches - k[1] == 2
+    for got, ref in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(got, ref, rtol=1e-5,
+                                   atol=1e-5 * float(ref.abs().max()))
+    assert torch.all(out["cuda"][0][-1] == 0)
+
+
+def test_envelope_calculator_cuda_matches_cpu(cuda):
+    """docs/mlearn_r5/Si_envelope on a rattled diamond cell: the card runs
+    K2 and no K1, and matches the port on the CPU at the serving limits."""
+    from alignn_tpu_torch.chem.atoms import Atoms
+    from alignn_tpu_torch.ff.calculator import Calculator
+
+    path = os.path.join(REPO, "docs", "mlearn_r5", "Si_envelope")
+    frac = np.array([[0, 0, 0], [0.25, 0.25, 0.25], [0, 0.5, 0.5],
+                     [0.25, 0.75, 0.75], [0.5, 0, 0.5], [0.75, 0.25, 0.75],
+                     [0.5, 0.5, 0], [0.75, 0.75, 0.25]])
+    frac = frac + np.random.default_rng(0).normal(0, 0.01, frac.shape)
+    atoms = Atoms(lattice_mat=np.eye(3) * 5.43, frac_coords=frac,
+                  elements=["Si"] * 8)
+    k = (ek.gated_aggregate_cuda.launches,
+         ek.sorted_segment_sum_cuda.launches)
+    gpu = Calculator(path=path).calculate(atoms)
+    assert ek.gated_aggregate_cuda.launches == k[0]
+    assert ek.sorted_segment_sum_cuda.launches > k[1]
+    cpu = Calculator(path=path, device="cpu").calculate(atoms)
+    assert abs(gpu["energy"] - cpu["energy"]) / 8 < 1e-4
+    np.testing.assert_allclose(gpu["forces"], cpu["forces"], atol=5e-4)
+    np.testing.assert_allclose(gpu["stress"], cpu["stress"], atol=1e-5)
+    assert np.abs(gpu["forces"].sum(axis=0)).max() < 1e-3
 
 
 def test_dense_autograd_runs_the_kernels(cuda):
