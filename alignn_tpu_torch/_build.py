@@ -5,7 +5,9 @@ Hopper (``sm_90a``) into its own shared library with a plain C interface,
 under ``build/alignn_tpu_torch/`` at the root of the checkout.  All
 sources are compiled in parallel, one ``nvcc`` process each.  A library's
 file name carries a hash of its source and flags, so an edited source is
-rebuilt and an unchanged one is reused.  Nothing is built on import.
+rebuilt and an unchanged one is reused.  The C++ host code of
+``native/`` is built by the same :func:`compile_libraries`, with ``g++``.
+Nothing is built on import.
 """
 
 from __future__ import annotations
@@ -52,38 +54,57 @@ def _nvcc() -> str:
     return path
 
 
-def _target(src: Path) -> Path:
+def library_path(src: Path, flags) -> Path:
+    """Where `src` is built with `flags`: the name carries a hash of the
+    source and the flags, so an edited source is rebuilt."""
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}_{digest}.so"
 
 
-def build_all() -> Dict[str, Path]:
-    """Compile every ``csrc/*.cu`` that is not built yet; {stem: library}."""
-    targets = {src.stem: _target(src) for src in sorted(CSRC_DIR.glob("*.cu"))}
-    todo = [(stem, lib) for stem, lib in targets.items() if not lib.exists()]
+def compile_libraries(compiler: str, flags, sources) -> Dict[str, Path]:
+    """Compile every source in `sources` that is not built yet, one
+    `compiler` process each, all started together; {stem: library}.
+
+    Each build is written under a temporary name of its own and published
+    with ``os.replace``, so processes that build at once each load a whole
+    library; the compiler's output is kept beside it (``<library>.log``).
+    """
+    targets = {src.stem: library_path(src, flags) for src in sources}
+    todo = [src for src in sources if not targets[src.stem].exists()]
     if not todo:
         return targets
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
     procs = []
-    for stem, lib in todo:
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{stem}.cu")]
-        procs.append((stem, lib, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    for src in todo:
+        lib = targets[src.stem]
+        tmp = lib.with_name(
+            f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+        procs.append((src.stem, lib, tmp, subprocess.Popen(
+            [compiler, *flags, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     failed = []
     for stem, lib, tmp, proc in procs:
         out, _ = proc.communicate()
         BUILD_LOG[stem] = out.decode(errors="replace")
         if proc.returncode != 0:
-            failed.append(f"{stem}.cu:\n{BUILD_LOG[stem]}")
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{stem}:\n{BUILD_LOG[stem]}")
             continue
         lib.with_name(f"{lib.name}.log").write_text(BUILD_LOG[stem])
-        os.replace(tmp, lib)   # atomic publish for concurrent builds
+        os.replace(tmp, lib)
     if failed:
-        raise RuntimeError("nvcc failed on " + "\n".join(failed))
+        raise RuntimeError(f"{os.path.basename(compiler)} failed on "
+                           + "\n".join(failed))
     return targets
+
+
+def build_all() -> Dict[str, Path]:
+    """Compile every ``csrc/*.cu`` that is not built yet; {stem: library}."""
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    if all(library_path(src, NVCC_FLAGS).exists() for src in sources):
+        return {src.stem: library_path(src, NVCC_FLAGS) for src in sources}
+    return compile_libraries(_nvcc(), NVCC_FLAGS, sources)
 
 
 def build_log(stem: str) -> str:

@@ -2,9 +2,10 @@
 
 Counterpart of ``alignn_tpu/graph/build.py`` (host-side numpy, no torch):
 flat index arrays, edges sorted by dst, the line graph sorted by lg_dst.
-The neighbour search is the numpy supercell tiling, for the k-NN, the
-radius and the jarvis radius strategies; the JAX package's optional C++
-cell list is not ported yet.
+The neighbour search of the k-NN, the radius and the jarvis radius
+strategies takes the C++ cell list (:mod:`alignn_tpu_torch.native`, a copy
+of the JAX package's) first, as the JAX package does, and the numpy
+supercell tiling on a host without ``g++``.
 
 Line-graph semantics match DGL's default ``backtracking=True``: an L-edge
 (e1 -> e2) exists for every ordered pair with dst(e1) == src(e2),
@@ -18,6 +19,7 @@ from typing import Optional
 
 import numpy as np
 
+from alignn_tpu_torch import native
 from alignn_tpu_torch.chem.atoms import Atoms
 
 
@@ -77,7 +79,15 @@ def _tiled_pairs(atoms: Atoms, cutoff: float, bond_tol: float = 0.5,
 
     Self-pairs at distance ~0 are excluded.  Returns arrays
     (u [P], v [P], images [P,3] int, disp [P,3], dist [P]).
+
+    The C++ cell list first (its own image window, whatever `bond_tol`),
+    numpy supercell tiling when it is unavailable, as in the JAX package.
     """
+    pairs = native.periodic_pairs_native(atoms.lattice_mat,
+                                         atoms.frac_coords, cutoff,
+                                         atol=atol)
+    if pairs is not None:
+        return pairs
     nmin, nmax = _image_ranges(atoms, cutoff, bond_tol)
     ranges = [np.arange(nmin[k], nmax[k]) for k in range(3)]
     cell_images = np.stack(

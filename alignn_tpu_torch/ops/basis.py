@@ -79,6 +79,8 @@ def bond_cosines_dense(r: torch.Tensor, D: int) -> torch.Tensor:
 
 def _clip_cos(cos: torch.Tensor) -> torch.Tensor:
     """clip to [-1, 1] as maximum/minimum, whose gradient at the bound is
-    0.5 as ``jnp.clip`` gives (``torch.clamp`` passes 1.0)."""
-    return torch.minimum(torch.maximum(cos, cos.new_tensor(-1.0)),
-                         cos.new_tensor(1.0))
+    0.5 as ``jnp.clip`` gives (``torch.clamp`` passes 1.0).  The bounds
+    are filled on the device (``new_full``): a tensor made from a Python
+    number is a copy from the host, which a CUDA graph cannot capture."""
+    return torch.minimum(torch.maximum(cos, cos.new_full((), -1.0)),
+                         cos.new_full((), 1.0))

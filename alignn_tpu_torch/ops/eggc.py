@@ -31,6 +31,7 @@ raises.  The kernel wrappers count their launches in ``.launches``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -87,6 +88,30 @@ class Segments:
                         item_rows=item_rows.to(i32),
                         item_ptr=item_ptr.to(i32), num=int(num),
                         num_items=int(num_items))
+
+    def max_items(self) -> int:
+        """The most work items any ids of this length over ``num``
+        segments can need: one per non-empty segment plus one per
+        ``CHUNK_ROWS`` rows."""
+        rows = int(self.ids.shape[0])
+        return rows // CHUNK_ROWS + min(self.num, rows) + 1
+
+    def with_capacity(self, capacity: int) -> "Segments":
+        """The same segments launched as `capacity` work items.
+
+        The items past ``num_items`` cover the empty row range at the end,
+        so the kernels write zero partials for them that no segment reads:
+        the sums are unchanged.  A CUDA graph captured on such segments
+        keeps its launch sizes and buffers for any ids of the same length
+        (ff/step_loop.py)."""
+        extra = capacity - self.num_items
+        if extra < 0:
+            raise ValueError(f"capacity {capacity} < {self.num_items} "
+                             "work items")
+        if extra == 0:
+            return self
+        rows = torch.cat([self.item_rows, self.item_rows[-1:].expand(extra)])
+        return dataclasses.replace(self, item_rows=rows, num_items=capacity)
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:

@@ -65,6 +65,28 @@ Phases:
    rocksalt cells built with the envelope potentials' graph, 2 warm-up
    and 10 timed steps, the first against the same step on the CPU port.
 
+10. the C++ neighbour list and the FF layer: ``native_graph`` builds the
+   graphs of ``docs/mlearn_r4/Si`` (k-NN) on the three Si cells and of
+   ``Si_envelope`` (radius 4.5 A) on those and ``cu108_rattled`` with the
+   C++ list and with numpy (graph and pair-search ms, median of 3; the two
+   byte-equal on the rattled cells, a radius graph's r within 1e-12 A;
+   a fresh Calculator's first ``graph_for``), failing if the library did
+   not build; ``ff_science`` runs the pins of
+   ``tests/test_envelope_potential.py`` and
+   ``tests/test_trained_potential.py`` through the Calculator on the card
+   (FIRE with the cell, E-V curve, Gamma phonons, vacancy, energy), each
+   task's seconds and Calculator calls; ``md_device`` runs ``run_md_jit``
+   with ``Si_envelope`` on si512_rattled (NVE, 1 fs, 300 K, 2 chunks of
+   25 steps) captured, eager and as the host loop ``run_md``: ms per
+   step, captures, energy drift, captured against eager (1e-5 A),
+   ``chunk_steps=1`` against the host loop, one chunk per layout
+   (envelope at si512 and si64, sparse and dense k-NN: replayed ms per
+   step, device busy share and operations under ``torch.profiler``,
+   eager ms, launches and host syncs per step), a dense ``run_md_jit``
+   chunk and an
+   ``nvt_langevin`` run; ``relax_device`` runs ``batch_relax`` on 8
+   rattled si64 cells, captured against eager.
+
 K3 is also launched twice at both dense shapes (bit-identical), with its
 fully masked (padded) nodes exactly 0 and one fill of its output timed
 beside it; every dense kernel's entry carries its share of the bound.
@@ -1427,6 +1449,721 @@ def envelope_train_phase(failures: list):
             "envelope": row}, launches
 
 
+# ---------------------------------------------------------------------------
+# the neighbour list, the FF tasks and the on-device loops
+# ---------------------------------------------------------------------------
+
+GRAPH_FIELDS = ("z", "frac_coords", "lattice", "src", "dst", "r", "images",
+                "lg_src", "lg_dst")
+
+
+@contextlib.contextmanager
+def numpy_search():
+    """``build_graph``'s numpy neighbour search inside (the C++ list
+    switched off), restored after whatever happens."""
+    from alignn_tpu_torch import native
+
+    real = native.periodic_pairs_native
+    native.periodic_pairs_native = lambda *a, **k: None
+    try:
+        yield
+    finally:
+        native.periodic_pairs_native = real
+
+
+def median_ms(fn, reps: int = 3):
+    """(median host ms of `reps` calls of fn, fn's last result)."""
+    times, out = [], None
+    for _ in range(reps):
+        t = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times)), out
+
+
+def graphs_agree(a, b, exact_r: bool) -> dict:
+    """Byte equality of two GraphData, field by field; a radius graph's
+    bond vectors are its search's own displacements, compared to 1e-12."""
+    same = {f: np.asarray(getattr(a, f)).tobytes()
+            == np.asarray(getattr(b, f)).tobytes() for f in GRAPH_FIELDS}
+    if not exact_r:
+        same["r"] = a.r.shape == b.r.shape and bool(
+            np.abs(a.r - b.r).max() <= 1e-12)
+    return same
+
+
+def native_graph_phase(models: dict, failures: list) -> list:
+    """The host graph build with the C++ neighbour list against numpy:
+    k-NN (``docs/mlearn_r4/Si``'s settings with the Calculator's tie_tol)
+    on the three Si cells and radius 4.5 A (``Si_envelope``'s) on those and
+    ``cu108_rattled``.  Per cell: the graph's and the pair search's host
+    ms, native and numpy (median of 3); on the rattled cells every array
+    byte-equal between the two (the radius graph's r within 1e-12 A); and
+    a fresh Calculator's first ``graph_for`` (``graph_first_call_ms``).
+    `models` maps "knn", "radius" (Si) and "cu" to (model, config)."""
+    from alignn_tpu_torch import native
+    from alignn_tpu_torch.chem.atoms import Atoms
+    from alignn_tpu_torch.ff.calculator import Calculator
+    from alignn_tpu_torch.graph import build as gb
+
+    if native.neighbors_lib() is None:
+        failures.append("native_graph: the C++ neighbour list did not "
+                        "build or load (g++ missing?)")
+        return []
+    cells = {"knn": si_cells(),
+             "radius": si_cells() + [("cu108_rattled", rattled_fcc(3))]}
+    rows = []
+    for strategy in ("knn", "radius"):
+        for name, atoms in cells[strategy]:
+            model_c, config_c = models["cu" if name.startswith("cu")
+                                       else strategy]
+            calc = Calculator(model=model_c, config=config_c)
+
+            def build():
+                return calc._build(atoms, calc.cutoff)
+
+            # the pair search on the wrapped cell, as build_graph runs it
+            wrapped = Atoms(lattice_mat=atoms.lattice_mat,
+                            frac_coords=gb.wrap_frac(atoms.frac_coords),
+                            elements=atoms.elements)
+
+            def pairs():
+                return gb._tiled_pairs(wrapped, calc.cutoff)
+
+            graph_ms, g_native = median_ms(build)
+            pairs_ms, _ = median_ms(pairs)
+            with numpy_search():
+                numpy_graph_ms, g_numpy = median_ms(build)
+                numpy_pairs_ms, _ = median_ms(pairs)
+            t = time.perf_counter()
+            Calculator(model=model_c, config=config_c).graph_for(atoms)
+            first_ms = (time.perf_counter() - t) * 1e3
+            row = {"cell": name, "strategy": strategy,
+                   "cutoff": calc.cutoff, "edges": g_native.num_edges,
+                   "lg_edges": g_native.num_lg_edges,
+                   "graph_ms": {"native": graph_ms, "numpy": numpy_graph_ms},
+                   "pairs_ms": {"native": pairs_ms, "numpy": numpy_pairs_ms},
+                   "graph_first_call_ms": first_ms}
+            if name != "diamond8":
+                same = graphs_agree(g_native, g_numpy,
+                                    exact_r=strategy == "knn")
+                row["native_equals_numpy"] = all(same.values())
+                if not row["native_equals_numpy"]:
+                    bad = [f for f, ok in same.items() if not ok]
+                    failures.append(f"native_graph {name} {strategy}: the "
+                                    f"C++ and numpy graphs differ in {bad}")
+            rows.append(row)
+    return rows
+
+
+class CountingCalculator:
+    """A Calculator's E/F/S with its calls counted, for the FF tasks."""
+
+    def __init__(self, calc):
+        self.calc, self.calls = calc, 0
+
+    def calculate(self, atoms):
+        self.calls += 1
+        return self.calc.calculate(atoms)
+
+    def get_potential_energy(self, atoms):
+        return self.calculate(atoms)["energy"]
+
+    def get_forces(self, atoms):
+        return self.calculate(atoms)["forces"]
+
+
+def primitive_si(a0: float):
+    from alignn_tpu_torch.chem.atoms import Atoms
+
+    lat = np.array([[0, a0 / 2, a0 / 2], [a0 / 2, 0, a0 / 2],
+                    [a0 / 2, a0 / 2, 0]])
+    return Atoms(lattice_mat=lat,
+                 frac_coords=np.array([[0.0, 0, 0], [0.25, 0.25, 0.25]]),
+                 elements=["Si", "Si"])
+
+
+def ff_science_phase(env_calc, knn_calc, failures: list) -> dict:
+    """The science pins of ``tests/test_envelope_potential.py`` (a0, B,
+    Gamma phonons, vacancy) through ``Si_envelope`` and of
+    ``tests/test_trained_potential.py`` through ``docs/mlearn_r4/Si``, at
+    full width on the card, with their bounds; each task's wall seconds
+    and Calculator calls.  A missed pin is a failure."""
+    from alignn_tpu_torch.chem.atoms import Atoms
+    from alignn_tpu_torch.ff.phonons import (force_constants,
+                                             phonon_frequencies)
+    from alignn_tpu_torch.ff.relax import fire_relax
+    from alignn_tpu_torch.ff.tasks import ev_curve
+
+    out = {}
+
+    def task(label, counter, fn, pins):
+        t = time.perf_counter()
+        c0 = counter.calls
+        values = fn()
+        row = {"seconds": time.perf_counter() - t,
+               "calculator_calls": counter.calls - c0, **values}
+        missed = [p for p, ok in pins(values).items() if not ok]
+        row["pins_missed"] = missed
+        if missed:
+            failures.append(f"ff_science {label}: missed {missed} ({values})")
+        out[label] = row
+
+    def a0_of(atoms):
+        return float(np.cbrt(abs(np.linalg.det(atoms.lattice_mat))))
+
+    for key, base in (("Si_envelope", env_calc), ("mlearn_r4_Si", knn_calc)):
+        counter = CountingCalculator(base)
+        state = {}
+
+        def relax_task():
+            rel, e, steps = fire_relax(counter, diamond(), fmax=0.01,
+                                       steps=200, optimize_lattice=True)
+            state["rel"] = rel
+            return {"a0": a0_of(rel), "energy_per_atom": e / 8,
+                    "steps": steps}
+
+        def ev_task():
+            dx = np.arange(-0.02, 0.0201, 0.005) if key == "Si_envelope" \
+                else np.arange(-0.015, 0.0151, 0.005)
+            ev = ev_curve(counter, state["rel"], relax_first=False, dx=dx)
+            return {"B_GPa": ev["eos"]["B_GPa"], "Bp": ev["eos"]["Bp"],
+                    "residual": ev["eos"]["residual"],
+                    "B_GPa_birch_murnaghan":
+                        ev["eos_birch_murnaghan"]["B_GPa"]}
+
+        def phonon_task():
+            fc = force_constants(counter, primitive_si(a0_of(state["rel"])),
+                                 supercell=(2, 2, 2), delta=0.02)
+            f = phonon_frequencies(fc, np.zeros(3))
+            return {"acoustic_max_THz": float(np.abs(f[:3]).max()),
+                    "optical_THz": [float(x) for x in f[3:]]}
+
+        if key == "Si_envelope":
+            task(f"{key}/relax", counter, relax_task, lambda v: {
+                "a0 5.480+-0.01": abs(v["a0"] - 5.480) <= 0.01,
+                "a0 within 1% of 5.469": abs(v["a0"] - 5.469) / 5.469 < 0.01,
+                "converged": v["steps"] < 200})
+            task(f"{key}/ev_curve", counter, ev_task, lambda v: {
+                "residual<5e-3": v["residual"] < 5e-3,
+                "B 88.6+-8": abs(v["B_GPa"] - 88.6) <= 8.0,
+                "2<Bp<6": 2.0 < v["Bp"] < 6.0,
+                "BM B within 5": abs(v["B_GPa_birch_murnaghan"]
+                                     - v["B_GPa"]) <= 5.0})
+            task(f"{key}/gamma_phonons", counter, phonon_task, lambda v: {
+                "acoustic<0.2": v["acoustic_max_THz"] < 0.2,
+                "optical ptp<0.3": np.ptp(v["optical_THz"]) < 0.3,
+                "optical 14.9+-1.5":
+                    abs(np.mean(v["optical_THz"]) - 14.9) <= 1.5})
+
+            def vacancy_task():
+                sc = state["rel"].make_supercell((2, 2, 2))
+                e_bulk = counter.get_potential_energy(sc)
+                vac = Atoms(lattice_mat=sc.lattice_mat,
+                            frac_coords=np.delete(sc.frac_coords, 0, axis=0),
+                            elements=["Si"] * (sc.num_atoms - 1))
+                ef = counter.get_potential_energy(vac) - e_bulk \
+                    + e_bulk / sc.num_atoms
+                return {"E_formation_eV": ef}
+
+            task(f"{key}/vacancy", counter, vacancy_task, lambda v: {
+                "1.5<Ef<4.5": 1.5 < v["E_formation_eV"] < 4.5})
+        else:
+            task(f"{key}/relax", counter, relax_task, lambda v: {
+                "a0 5.510+-0.01": abs(v["a0"] - 5.510) <= 0.01,
+                "a0 within 2% of 5.469": abs(v["a0"] - 5.469) / 5.469 < 0.02,
+                "E/atom -5.414+-0.02":
+                    abs(v["energy_per_atom"] + 5.414) <= 0.02,
+                "converged": v["steps"] < 200})
+            task(f"{key}/ev_curve", counter, ev_task, lambda v: {
+                "residual<2e-3": v["residual"] < 2e-3,
+                "45<B<110": 45 < v["B_GPa"] < 110})
+            task(f"{key}/gamma_phonons", counter, phonon_task, lambda v: {
+                "acoustic<0.5": v["acoustic_max_THz"] < 0.5,
+                "12<optical<17": 12.0 < min(v["optical_THz"])
+                and max(v["optical_THz"]) < 17.0,
+                "optical ptp<0.5": np.ptp(v["optical_THz"]) < 0.5})
+
+            def energy_task():
+                return {"energy_per_atom":
+                        counter.get_potential_energy(diamond()) / 8}
+
+            task(f"{key}/diamond_energy", counter, energy_task, lambda v: {
+                "-5.3774+-2e-3": abs(v["energy_per_atom"] + 5.3774) <= 2e-3})
+    return out
+
+
+MD_STEPS, MD_CHUNK, PROFILED_STEPS = 50, 25, 5
+MD_TOL = {"captured_vs_eager_A": 1e-5, "captured_vs_eager_eV_per_atom": 1e-5,
+          "host_rtol": 1e-4, "host_atol_A": 1e-5, "host_etot_rel": 1e-3}
+
+
+def wrapped_cart(atoms):
+    return (np.asarray(atoms.frac_coords) % 1.0) @ atoms.lattice_mat
+
+
+def frac_gap_A(fa, fb, lattice) -> float:
+    """Largest distance in A between two sets of fractional positions,
+    each pair taken through the nearest periodic image."""
+    d = np.asarray(fa, dtype=np.float64) - np.asarray(fb, dtype=np.float64)
+    return float(np.abs((d - np.round(d)) @ lattice).max())
+
+
+def md_batch(atoms, layout: str, graph_kw: dict, device):
+    """(graph, one chunk's batch as ``run_md_jit`` builds it: its bucket
+    rule, the padded segments)."""
+    from alignn_tpu_torch.ff.md_jit import BUCKET_SLACK, sparse_spec
+    from alignn_tpu_torch.ff.step_loop import with_item_capacity
+    from alignn_tpu_torch.graph import dense as gdense
+    from alignn_tpu_torch.graph.batch import batch_graphs
+    from alignn_tpu_torch.graph.build import build_graph
+
+    g = build_graph(atoms, **graph_kw)
+    if layout == "dense":
+        batch = gdense.dense_batch_graphs(
+            [g], gdense.dense_spec_with_slack(g, bucket_slack=BUCKET_SLACK),
+            device)
+    else:
+        batch = batch_graphs([g], sparse_spec(g), device,
+                             gather_windows=False)
+    return g, with_item_capacity(batch)
+
+
+def md_kernel_holds(batch, layout: str, hidden: int, failures: list) -> dict:
+    """Each kernel of `layout`'s MD step against its plain version on the
+    chunk's own batch (its segments padded to the bucket's item capacity,
+    its dense bucket), f32, 1e-5 x max|plain|: sparse K1 forward and
+    backward (through K2) on the node and line-graph ``dst`` segments and
+    K2 on those and the ``src_sorted`` ones at the hidden width; envelope
+    K2 on the same four at F 512, hidden and 1; dense K3, K4 and K5a at
+    the bucket's D with its slot masks.  K2's inputs are dyadic, so its
+    sums are exact."""
+    import torch
+
+    from alignn_tpu_torch.ops import dense as dk
+    from alignn_tpu_torch.ops import eggc as ek
+
+    dev = batch.r.device
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out = {}
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    def check(got, ref, what):
+        return compare(got, ref, "float32", failures, f"md {layout} {what}")
+
+    if layout == "dense":
+        D, n = batch.dense_D, batch.z.shape[0]
+        m = dk.fold_mask(randn(n * D, hidden), batch.edge_mask)
+        m2 = dk.fold_mask(randn(n * D * D, hidden), batch.lg_mask)
+        bh, g = randn(n * D, hidden), randn(n * D, hidden)
+        out["K3"] = check(dk.dense_gated_aggregate_cuda(m, bh, D),
+                          dk.dense_gated_aggregate_plain(m, bh, D), "K3")
+        out["K4"] = check(dk.dense_pair_aggregate_cuda(m2, bh, D),
+                          dk.dense_pair_aggregate_plain(m2, bh, D), "K4")
+        got = dk.pair_aggregate_bwd_cuda(m2, bh, g, D)
+        ref = dk.pair_aggregate_bwd_plain(m2, bh, g, D)
+        out["K5a"] = {part: check(got[i], ref[i], f"K5a {part}")
+                      for i, part in enumerate(("dm2", "dbh"))}
+        return {"D": D, "nodes": n, **out}
+    sites = {"g_dst": batch.g_index.dst,
+             "g_src_sorted": batch.g_index.src_sorted,
+             "lg_dst": batch.lg_index.dst,
+             "lg_src_sorted": batch.lg_index.src_sorted}
+    widths = (512, hidden, 1) if layout == "envelope" else (hidden,)
+    for site, seg in sites.items():
+        rows = seg.ids.shape[0]
+        for f in widths:
+            x = torch.randint(-64, 65, (rows, f), device=dev,
+                              generator=gen).float() / 16
+            out[f"K2_{site}_F{f}"] = check(
+                ek.sorted_segment_sum_cuda(x, seg),
+                ek.sorted_segment_sum_plain(x, seg), f"K2 {site} F {f}")
+        if layout == "sparse" and site.endswith("dst"):
+            m, bh = randn(rows, hidden), randn(rows, hidden)
+            out[f"K1_{site}"] = check(ek.gated_aggregate_cuda(m, bh, seg),
+                                      ek.gated_aggregate_plain(m, bh, seg),
+                                      f"K1 {site}")
+            gout = randn(seg.num, hidden)
+            grads = []
+            for fn in (ek.gated_aggregate, ek.gated_aggregate_plain):
+                mt, bt = m.clone().requires_grad_(True), \
+                    bh.clone().requires_grad_(True)
+                grads.append(torch.autograd.grad(fn(mt, bt, seg), (mt, bt),
+                                                 gout))
+            out[f"K1_{site}_backward"] = {
+                part: check(grads[0][i], grads[1][i],
+                            f"K1 {site} backward {part}")
+                for i, part in enumerate(("dm", "dbh"))}
+    return {"items": {k: seg.num_items for k, seg in sites.items()}, **out}
+
+
+def count_capture(loop) -> dict:
+    """Instruments `loop` (a ``StepLoop``): the returned dict receives the
+    kernel wrappers' launch counts over its captured step, which is what
+    every replay launches, and the capture's wall time in ms."""
+    import torch
+
+    seen = {}
+    step, capture = loop.step, loop._capture
+
+    def counted_step():
+        if not torch.cuda.is_current_stream_capturing():
+            return step()
+        k0 = read_launches()
+        step()
+        k1 = read_launches()
+        seen["launches"] = {k: k1[k] - k0[k] for k in k1}
+
+    def timed_capture():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        capture()
+        torch.cuda.synchronize()
+        seen["capture_ms"] = (time.perf_counter() - t) * 1e3
+
+    loop.step, loop._capture = counted_step, timed_capture
+    return seen
+
+
+def md_chunk_phase(model, atoms, layout: str, graph_kw: dict,
+                   failures: list) -> dict:
+    """One MD chunk of `layout` (sparse k-NN, dense k-NN or envelope) on
+    the card, built as ``run_md_jit`` builds it.  Its kernels against
+    their plain versions on its own batch (:func:`md_kernel_holds`); the
+    dense layout's energy and forces against the sparse layout of the same
+    graph.  Then 25 NVE steps from one start, eager and captured (twice:
+    the capture's chunk, then one of replays alone), the captured
+    positions within 1e-5 A and energies within 1e-5 eV/atom of the
+    eager ones.  Measured: the chunks' wall times; the replayed step (ms,
+    device busy share and device operations of replays under
+    ``torch.profiler``); the eager step (ms, host syncs under
+    ``torch.cuda.set_sync_debug_mode("warn")``); kernel launches a step,
+    counted over the captured step (what a replay launches) and over
+    eager steps; the capture's time, and the run length from which
+    capturing pays back (the warm-up steps plus the capture's time over
+    what a replay saves on an eager step)."""
+    import warnings
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from alignn_tpu_torch.chem.atoms import atomic_masses
+    from alignn_tpu_torch.ff.md import FS, maxwell_boltzmann_velocities
+    from alignn_tpu_torch.ff.md_jit import MDChunk, energy_and_forces, \
+        sparse_spec
+    from alignn_tpu_torch.ff.step_loop import WARMUP_STEPS, StepLoop
+    from alignn_tpu_torch.graph.batch import batch_graphs
+
+    dev = torch.device("cuda")
+    g, batch = md_batch(atoms, layout, graph_kw, dev)
+    n_at, n_pad = atoms.num_atoms, batch.z.shape[0]
+    masses = np.zeros(n_pad)
+    masses[:n_at] = atomic_masses()[atoms.atomic_numbers]
+    vel = np.zeros((n_pad, 3))
+    vel[:n_at] = maxwell_boltzmann_velocities(atoms, 300.0, 0)
+    row = {"layout": layout, "atoms": n_at,
+           "bucket": [n_pad, batch.src.shape[0], batch.lg_src.shape[0]],
+           "dense_D": batch.dense_D,
+           "kernels_vs_plain": md_kernel_holds(
+               batch, layout, model.cfg.hidden_features, failures)}
+    if layout == "dense":
+        sp = batch_graphs([g], sparse_spec(g), dev, gather_windows=False)
+        e_d, f_d, _ = energy_and_forces(model, batch, batch.frac_coords)
+        e_s, f_s, _ = energy_and_forces(model, sp, sp.frac_coords)
+        de = abs(float(e_d) - float(e_s)) / n_at
+        df = float((f_d[:n_at] - f_s[:n_at]).abs().max())
+        row["dense_vs_sparse"] = {"energy_eV_per_atom": de,
+                                  "forces_eV_per_A": df}
+        if not (de <= CPU_TOL["energy_per_atom"] and df <= CPU_TOL["forces"]):
+            failures.append(f"md chunk dense: against the sparse layout "
+                            f"{de} eV/atom, {df} eV/A")
+        del sp
+
+    def chunk(cuda_graph):
+        return MDChunk(model, batch, FS, "nve", 300.0, 0.02, MD_CHUNK,
+                       torch.Generator(device=dev).manual_seed(0),
+                       cuda_graph=cuda_graph)
+
+    def timed_chunk(c):     # the chunk's one fetch synchronises
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = c.run(batch, masses, vel, MD_CHUNK)
+        return (time.perf_counter() - t) * 1e3, res
+
+    lat = batch.lattice[0].cpu().numpy().astype(np.float64)
+    eager = chunk(False)
+    row["eager_chunk_ms"], ref = timed_chunk(eager)
+    k0 = read_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    eager.loop.run(5)
+    torch.cuda.synchronize()
+    row["eager_ms_per_step"] = (time.perf_counter() - t) * 1e3 / 5
+    k1 = read_launches()
+    row["launches_per_eager_step"] = {k: (k1[k] - k0[k]) / 5 for k in k1}
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            eager.loop.run(3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    row["host_syncs_per_eager_step"] = sum(
+        "synchroniz" in str(w.message) for w in caught) / 3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eager.loop.run(2)
+        torch.cuda.synchronize()
+    row["device_ops_per_eager_step"] = device_ms_by_name(prof)[1] / 2
+    del eager
+
+    c0 = StepLoop.captures
+    captured = chunk(True)
+    seen = count_capture(captured.loop)
+    row["captured_first_chunk_ms"], first = timed_chunk(captured)
+    row["captured_chunk_ms"], again = timed_chunk(captured)   # replays
+    row["captures"] = StepLoop.captures - c0
+    gaps = {}
+    for name, res in (("first", first), ("replays", again)):
+        dx = frac_gap_A(res[0][:n_at], ref[0][:n_at], lat)
+        de = max(float(np.abs(res[i] - ref[i]).max()) for i in (2, 3)) / n_at
+        gaps[name] = {"max_A": dx, "energy_eV_per_atom": de}
+        if not (dx <= MD_TOL["captured_vs_eager_A"]
+                and de <= MD_TOL["captured_vs_eager_eV_per_atom"]):
+            failures.append(f"md chunk {layout}: captured ({name}) vs "
+                            f"eager {dx} A, {de} eV/atom")
+    row["captured_vs_eager"] = gaps
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    captured.loop.run(MD_CHUNK)
+    torch.cuda.synchronize()
+    row["captured_ms_per_step"] = (time.perf_counter() - t) * 1e3 / MD_CHUNK
+    for _ in range(2):   # the second profiled run, as `breakdown` does
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            captured.loop.run(PROFILED_STEPS)
+            torch.cuda.synchronize()
+    by_name, n_ops = device_ms_by_name(prof)
+    busy = sum(by_name.values()) / PROFILED_STEPS
+    row["device_busy_ms_per_step"] = busy
+    # the profiled replays' device time over the unprofiled replays' wall
+    row["device_busy_share"] = busy / row["captured_ms_per_step"]
+    row["device_ops_per_step"] = n_ops / PROFILED_STEPS
+    row["top_kernels_ms"] = top_kernels(by_name)
+    row["capture_ms"] = seen.get("capture_ms")
+    saving = row["eager_ms_per_step"] - row["captured_ms_per_step"]
+    row["break_even_steps"] = (WARMUP_STEPS + seen["capture_ms"] / saving
+                               if saving > 0 and "capture_ms" in seen
+                               else None)
+    need = {"sparse": ("K1", "K2"), "dense": ("K3", "K4", "K5a"),
+            "envelope": ("K2",)}[layout]
+    banned = {"sparse": ("K3", "K4", "K5a", "K6", "K7", "K8"),
+              "dense": ("K1", "K6", "K7", "K8"),
+              "envelope": NOT_K2}[layout]
+    per = row["launches_per_step"] = seen.get("launches")
+    if per is None or any(per[k] <= 0 for k in need) or \
+            any(per[k] for k in banned):
+        failures.append(f"md chunk {layout}: launches per captured step "
+                        f"{per} (need {need}, none of {banned})")
+    if row["captures"] != 1:
+        failures.append(f"md chunk {layout}: {row['captures']} captures")
+    return row
+
+
+def md_device_phase(env_calc, knn_calc, failures: list) -> dict:
+    """``run_md_jit`` with ``Si_envelope`` on si512_rattled and on
+    si64_rattled, NVE, 1 fs, 300 K, 2 chunks of 25 steps, captured and
+    eager (each twice, in the order captured, eager, eager, captured), and
+    at si512 as the host loop ``run_md`` through the Calculator: ms per
+    step of each, captures, total-energy drift; captured against eager
+    within 1e-5 A and 1e-5 eV/atom; with
+    ``chunk_steps=1`` (captured) against the host loop after 10 steps with
+    the tolerances of ``tests/test_md_jit.py``.  Then one chunk per
+    layout (:func:`md_chunk_phase`: envelope at si512 and si64, sparse
+    and dense k-NN), a
+    dense ``run_md_jit`` chunk of ``docs/mlearn_r4/Si`` (``dense=True``)
+    and an ``nvt_langevin`` run, whose mean temperature over its last
+    half is reported."""
+    import torch
+
+    from alignn_tpu_torch.ff.calculator import Calculator
+    from alignn_tpu_torch.ff.md import run_md
+    from alignn_tpu_torch.ff.md_jit import run_md_jit
+    from alignn_tpu_torch.ff.step_loop import StepLoop
+
+    env_model, knn_model = env_calc.model, knn_calc.model
+    si512 = rattled_supercell(4)
+    env_kw = dict(cutoff=4.5, neighbor_strategy="radius_graph")
+    kw = dict(steps=MD_STEPS, chunk_steps=MD_CHUNK, timestep_fs=1.0,
+              initial_temperature_K=300.0, seed=0, **env_kw)
+    out = {"atoms": si512.num_atoms, "steps": MD_STEPS, "chunk": MD_CHUNK}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / MD_STEPS, res
+
+    # whole runs, in the order captured, eager, eager, captured, at si512
+    # (device-bound) and si64 (host-bound); each captured run against the
+    # eager one, positions 1e-5 A, energies 1e-5 eV/atom
+    whole = {}
+    for size, atoms in (("si512", si512), ("si64", rattled_supercell(2))):
+        times = {"captured": [], "eager": []}
+        runs = {}
+        for mode in ("captured", "eager", "eager", "captured"):
+            c0 = StepLoop.captures
+            ms, runs[mode] = timed(lambda: run_md_jit(
+                env_model, atoms, cuda_graph=mode == "captured", **kw))
+            times[mode].append(ms)
+            if mode == "captured" and StepLoop.captures - c0 != 1:
+                failures.append(f"md_device {size}: "
+                                f"{StepLoop.captures - c0} captures a run")
+        (a_c, log_c), (a_e, log_e) = runs["captured"], runs["eager"]
+        if size == "si512":
+            log_graph = log_c
+        dx = frac_gap_A(a_c.frac_coords, a_e.frac_coords, a_e.lattice_mat)
+        de = max(abs(x[k] - y[k]) for x, y in zip(log_c.rows, log_e.rows)
+                 for k in ("epot", "ekin")) / atoms.num_atoms
+        whole[size] = {"atoms": atoms.num_atoms, "ms_per_step": times,
+                       "captured_vs_eager": {"max_A": dx,
+                                             "energy_eV_per_atom": de}}
+        if not (dx <= MD_TOL["captured_vs_eager_A"]
+                and de <= MD_TOL["captured_vs_eager_eV_per_atom"]):
+            failures.append(f"md_device {size}: captured vs eager {dx} A, "
+                            f"{de} eV/atom")
+    out["whole_runs"] = whole
+    out["captured_ms_per_step"] = float(np.mean(
+        whole["si512"]["ms_per_step"]["captured"]))
+    out["eager_ms_per_step"] = float(np.mean(
+        whole["si512"]["ms_per_step"]["eager"]))
+    calc = Calculator(model=env_model, config=env_calc.config)
+    host = {}
+
+    def keep(step, state, _epot, _forces):
+        if step == 9:
+            host["atoms10"] = state.atoms
+
+    out["host_loop_ms_per_step"], (h_state, h_log) = timed(
+        lambda: run_md(calc, si512, ensemble="nve", steps=MD_STEPS,
+                       timestep_fs=1.0, initial_temperature_K=300.0, seed=0,
+                       log_interval=1, callback=keep))
+    etot = np.array([r["etot"] for r in log_graph.rows])
+    out["etot_drift_eV_per_atom"] = float((etot[-1] - etot[0]) / 512)
+    out["etot_max_dev_eV_per_atom"] = float(np.abs(etot - etot[0]).max()
+                                            / 512)
+    out["host_etot_drift_eV_per_atom"] = float(
+        (h_log.rows[-1]["etot"] - h_log.rows[0]["etot"]) / 512)
+    c0 = StepLoop.captures
+    a1, log1 = run_md_jit(env_model, si512, **{**kw, "steps": 10,
+                                               "chunk_steps": 1})
+    out["chunk1_captures"] = StepLoop.captures - c0
+    ref = wrapped_cart(host["atoms10"])
+    diff = np.abs(wrapped_cart(a1) - ref)
+    out["chunk1_vs_host_max_A"] = float(diff.max())
+    etot_rel = abs(log1.rows[-1]["etot"] - h_log.rows[9]["etot"]) / abs(
+        h_log.rows[9]["etot"])
+    out["chunk1_vs_host_etot_rel"] = etot_rel
+    if not (np.all(diff <= MD_TOL["host_atol_A"]
+                   + MD_TOL["host_rtol"] * np.abs(ref))
+            and etot_rel <= MD_TOL["host_etot_rel"]):
+        failures.append(f"md_device: chunk_steps=1 vs host loop "
+                        f"{diff.max()} A, etot rel {etot_rel}")
+    out["tolerances"] = MD_TOL
+    for name, r in (("captured", log_graph), ("host", h_log)):
+        if not all(np.isfinite(x["etot"]) for x in r.rows):
+            failures.append(f"md_device {name}: non-finite energies")
+
+    knn_kw = dict(cutoff=8.0, neighbor_strategy="k-nearest")
+    out["chunks"] = {
+        "envelope": md_chunk_phase(env_model, si512, "envelope", env_kw,
+                                   failures),
+        # a host-bound size: a serving call of si64 keeps the card busy
+        # for 42 % of it
+        "envelope_si64": md_chunk_phase(env_model, rattled_supercell(2),
+                                        "envelope", env_kw, failures),
+        "sparse": md_chunk_phase(knn_model, si512, "sparse", knn_kw,
+                                 failures),
+        "dense": md_chunk_phase(knn_model, si512, "dense", knn_kw,
+                                failures)}
+    k0 = read_launches()
+    ms, (a_dense, log_dense) = timed(lambda: run_md_jit(
+        knn_model, si512, dense=True, **{**kw, **knn_kw,
+                                         "steps": MD_CHUNK}))
+    k1 = read_launches()
+    dense_ok = k1["K4"] > k0["K4"] and k1["K1"] == k0["K1"]
+    out["dense_run"] = {"ms_per_step": ms * MD_STEPS / MD_CHUNK,
+                        "ran_dense": dense_ok,
+                        "etot_drift_eV_per_atom": (
+                            log_dense.rows[-1]["etot"]
+                            - log_dense.rows[0]["etot"]) / 512}
+    if not dense_ok or not np.isfinite(a_dense.cart_coords).all():
+        failures.append("md_device: the dense run_md_jit chunk did not run "
+                        "the dense layout, or went non-finite")
+    ms, (a_lv, log_lv) = timed(lambda: run_md_jit(
+        env_model, si512, ensemble="nvt_langevin", temperature_K=300.0,
+        **{k: v for k, v in kw.items() if k != "initial_temperature_K"}))
+    temps = [r["T"] for r in log_lv.rows]
+    out["langevin"] = {"ms_per_step": ms,
+                       "mean_T_last_half": float(np.mean(
+                           temps[len(temps) // 2:])),
+                       "T_first": temps[0], "T_last": temps[-1]}
+    if not np.isfinite(temps).all() or \
+            not np.isfinite(a_lv.cart_coords).all():
+        failures.append("md_device: the Langevin run went non-finite")
+    return out
+
+
+def relax_device_phase(env_calc, failures: list) -> dict:
+    """``batch_relax`` of 8 rattled si64 cells (rattle 0.05 A, seeds 0-7)
+    with ``Si_envelope``'s graph (radius 4.5 A), 2 chunks of 25 FIRE
+    steps, captured and eager: ms per step, final fmax per cell, and the
+    captured result against the eager one (positions 1e-4 A, energies
+    1e-4 eV)."""
+    import torch
+
+    from alignn_tpu_torch.chem.atoms import Atoms
+    from alignn_tpu_torch.ff.relax_jit import batch_relax
+    from alignn_tpu_torch.ff.step_loop import StepLoop
+
+    cells = []
+    for seed in range(8):
+        sc = diamond().make_supercell([2, 2, 2])
+        cart = sc.cart_coords + np.random.default_rng(seed).normal(
+            0.0, 0.05, sc.cart_coords.shape)
+        cells.append(Atoms(lattice_mat=sc.lattice_mat,
+                           frac_coords=cart @ np.linalg.inv(sc.lattice_mat),
+                           elements=sc.elements))
+    kw = dict(fmax=1e-4, max_steps=50, chunk_steps=25, cutoff=4.5)
+    out = {"cells": len(cells), "atoms": 64 * len(cells),
+           "steps": kw["max_steps"]}
+    results = {}
+    for mode, cg in (("captured", True), ("eager", False)):
+        c0 = StepLoop.captures
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        results[mode] = batch_relax(env_calc.model, cells, cuda_graph=cg,
+                                    **kw)
+        torch.cuda.synchronize()
+        out[f"{mode}_ms_per_step"] = (time.perf_counter() - t) * 1e3 \
+            / kw["max_steps"]
+        out[f"{mode}_captures"] = StepLoop.captures - c0
+        out[f"{mode}_fmax"] = [float(x) for x in results[mode][2]]
+    (ag, eg, fg), (ae, ee, _fe) = results["captured"], results["eager"]
+    dpos = max(frac_gap_A(x.frac_coords, y.frac_coords, y.lattice_mat)
+               for x, y in zip(ag, ae))
+    de = float(np.abs(eg - ee).max())
+    out["captured_vs_eager"] = {"max_A": dpos, "energy_eV": de}
+    out["fmax_start"] = [float(np.linalg.norm(
+        env_calc.calculate(c)["forces"], axis=1).max()) for c in cells]
+    if not (dpos <= 1e-4 and de <= 1e-4) or not np.isfinite(fg).all():
+        failures.append(f"relax_device: captured vs eager {dpos} A, "
+                        f"{de} eV")
+    return out
+
+
 KERNELS = (  # id, name, source, replaces
     ("K1", "eggc_gated_aggregate", "alignn_tpu_torch/csrc/eggc.cu",
      "alignn_tpu/ops/pallas_eggc.py:45"),
@@ -1625,6 +2362,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     erow, train_launches["envelope"] = envelope_train_phase(failures)
     emit({"phase": "envelope_train", **erow})
+    torch.cuda.empty_cache()
+
+    # the C++ neighbour list, the FF tasks, the on-device MD and FIRE loops
+    env_calc = Calculator(path=ENVELOPE_DIRS["Si"])
+    cu_calc = Calculator(path=ENVELOPE_DIRS["Cu"])
+    knn_calc = new_calc()
+    for row in native_graph_phase(
+            {"knn": (base.model, base.config),
+             "radius": (env_calc.model, env_calc.config),
+             "cu": (cu_calc.model, cu_calc.config)}, failures):
+        emit({"phase": "native_graph", **row})
+    emit({"phase": "ff_science",
+          **ff_science_phase(env_calc, knn_calc, failures)})
+    md = md_device_phase(env_calc, knn_calc, failures)
+    emit({"phase": "md_device", **md})
+    emit({"phase": "relax_device", **relax_device_phase(env_calc, failures)})
 
     line = []
     for key, name, source, replaces in KERNELS:
@@ -1653,6 +2406,9 @@ def main() -> int:
             "replaces": replaces,
             "launches": launches[key],
             "launches_envelope_slice": envelope_launches[key],
+            "launches_per_md_step": {
+                layout: md["chunks"][layout]["launches_per_step"][key]
+                for layout in ("sparse", "dense", "envelope")},
             "launches_per_train_step": {
                 layout: per_step[key]
                 for layout, per_step in train_launches.items()},

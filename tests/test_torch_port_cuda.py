@@ -5,7 +5,10 @@ sums), K3/K4/K5a/K5b (``csrc/dense.cu``, K3 and K5a/K5b also across
 their splits, K5a/K5b with their occupancy and the sigmoid's bit-exact
 select) and K6/K7 (``csrc/fused_lstage.cu``), then the
 Calculator and the E/F/S train step on the card against the port on the
-CPU, sparse, envelope-weighted, dense and fused dense.
+CPU, sparse, envelope-weighted, dense and fused dense; then the on-device
+MD and FIRE loops captured as CUDA graphs against the same loops run
+eagerly, and one captured graph across two chunks whose segments need
+different work-item counts.
 
 Every test here is marked ``cuda`` and skips on a host without a GPU.
 This file imports torch and numpy only (the card's host has no JAX), so
@@ -723,3 +726,114 @@ def test_fused_dense_calculator_cuda_matches_cpu(cuda, monkeypatch):
     assert abs(gpu["energy"] - cpu["energy"]) / 8 < 1e-4
     np.testing.assert_allclose(gpu["forces"], cpu["forces"], atol=5e-4)
     np.testing.assert_allclose(gpu["stress"], cpu["stress"], atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the on-device MD and relaxation loops as CUDA graphs
+# ---------------------------------------------------------------------------
+
+
+def _rattled_si(n, rattle=0.03, seed=0):
+    from alignn_tpu_torch.chem.atoms import Atoms
+
+    frac = np.array([[0, 0, 0], [0.25, 0.25, 0.25], [0, 0.5, 0.5],
+                     [0.25, 0.75, 0.75], [0.5, 0, 0.5], [0.75, 0.25, 0.75],
+                     [0.5, 0.5, 0], [0.75, 0.75, 0.25]])
+    sc = Atoms(lattice_mat=np.eye(3) * 5.43, frac_coords=frac,
+               elements=["Si"] * 8).make_supercell([n] * 3)
+    cart = sc.cart_coords + np.random.default_rng(seed).normal(
+        0.0, rattle, sc.cart_coords.shape)
+    return Atoms(lattice_mat=sc.lattice_mat,
+                 frac_coords=cart @ np.linalg.inv(sc.lattice_mat),
+                 elements=sc.elements)
+
+
+def test_md_jit_captured_matches_eager(cuda):
+    """Si_envelope on rattled si64, NVE, 2 chunks of 5 steps: the chunk's
+    step captured once and replayed (one capture: the padded segments keep
+    the launch sizes of the bucket) against the same loop run eagerly,
+    positions within 1e-5 A and energies within 1e-6 eV/atom (two f32
+    ulps of the 64-atom total)."""
+    from alignn_tpu_torch.ff.calculator import Calculator
+    from alignn_tpu_torch.ff.md_jit import run_md_jit
+    from alignn_tpu_torch.ff.step_loop import StepLoop
+
+    model = Calculator(path=os.path.join(
+        REPO, "docs", "mlearn_r5", "Si_envelope")).model
+    kw = dict(steps=10, chunk_steps=5, cutoff=4.5,
+              initial_temperature_K=300.0, seed=1)
+    c0 = StepLoop.captures
+    a_graph, log_graph = run_md_jit(model, _rattled_si(2), **kw)
+    assert StepLoop.captures - c0 == 1
+    a_eager, log_eager = run_md_jit(model, _rattled_si(2), cuda_graph=False,
+                                    **kw)
+    assert StepLoop.captures - c0 == 1
+    np.testing.assert_allclose(a_graph.cart_coords, a_eager.cart_coords,
+                               rtol=0, atol=1e-5)
+    for x, y in zip(log_graph.rows, log_eager.rows):
+        assert abs(x["epot"] - y["epot"]) / 64 < 1e-6
+        assert abs(x["ekin"] - y["ekin"]) / 64 < 1e-6
+
+
+def test_md_jit_recaptures_for_a_new_bucket(cuda):
+    """Two chunks whose segments need different work-item counts
+    (num_items 2 vs 3 at the same bucket): padded to the bucket's
+    capacity, one captured graph serves both; a batch of a larger bucket
+    is refused.  The replayed graph gives K2's unpadded sums bit for bit,
+    and the plain sums within 1e-5 x their largest (each batch runs the
+    loop's warm-up steps and one more, so its last step is a replay)."""
+    from alignn_tpu_torch.ff.step_loop import (WARMUP_STEPS, StepLoop,
+                                               with_item_capacity)
+    from alignn_tpu_torch.graph.batch import BucketSpec, batch_graphs
+    from alignn_tpu_torch.graph.build import build_graph
+
+    graphs = [build_graph(_rattled_si(1, rattle=r, seed=s),
+                          neighbor_strategy="radius_graph", cutoff=4.5)
+              for r, s in ((0.0, 0), (0.2, 3))]
+    spec = BucketSpec(n_nodes=128, n_edges=512, n_lg_edges=8192, n_graphs=2)
+    raw = [batch_graphs([g], spec, cuda, gather_windows=False)
+           for g in graphs]
+    assert raw[0].lg_index.dst.num_items != raw[1].lg_index.dst.num_items
+    batches = [with_item_capacity(b) for b in raw]
+    x = torch.randn(8192, 64, device=cuda)
+    out = torch.zeros(512, 64, device=cuda)
+
+    def step():
+        out.copy_(ek.sorted_segment_sum(x, loop.batch.lg_index.dst))
+
+    loop = StepLoop(step, batches[0])
+    c0 = StepLoop.captures
+    for b, r in zip(batches, raw):
+        if b is not loop.batch:
+            loop.load_batch(b)
+        loop.run(WARMUP_STEPS + 1)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ek.sorted_segment_sum_cuda(
+            x, r.lg_index.dst))
+        ref = ek.sorted_segment_sum_plain(x, r.lg_index.dst)
+        assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+    assert StepLoop.captures - c0 == 1
+    bigger = with_item_capacity(batch_graphs(
+        graphs[:1], BucketSpec(n_nodes=256, n_edges=512, n_lg_edges=8192,
+                               n_graphs=2), cuda, gather_windows=False))
+    with pytest.raises(ValueError, match="signature"):
+        loop.load_batch(bigger)
+
+
+def test_batch_relax_captured_matches_eager(cuda):
+    """Four rattled si8 cells, Si_envelope's graph (radius 4.5): the
+    captured FIRE loop against the eager one, positions within 1e-5 A."""
+    from alignn_tpu_torch.ff.calculator import Calculator
+    from alignn_tpu_torch.ff.relax_jit import batch_relax
+
+    model = Calculator(path=os.path.join(
+        REPO, "docs", "mlearn_r5", "Si_envelope")).model
+    cells = [_rattled_si(1, rattle=0.05, seed=s) for s in range(4)]
+    kw = dict(fmax=1e-3, max_steps=20, chunk_steps=10, cutoff=4.5)
+    a, ea, fa = batch_relax(model, cells, **kw)
+    b, eb, fb = batch_relax(model, cells, cuda_graph=False, **kw)
+    for x, y in zip(a, b):
+        np.testing.assert_allclose(x.cart_coords, y.cart_coords, rtol=0,
+                                   atol=1e-5)
+    np.testing.assert_allclose(ea, eb, rtol=0, atol=1e-5)
+    assert (fa < np.array([np.inf])).all()

@@ -74,12 +74,15 @@ def _records():
 
 @pytest.fixture
 def numpy_neighbors(monkeypatch):
-    """alignn_tpu's optional C++ cell list orders tied pairs differently
-    from the numpy search that the port uses; compare like with like."""
+    """A C++ cell list orders tied pairs otherwise than the numpy search;
+    both packages take the numpy search here, to compare like with like
+    (tests/test_torch_port_native.py compares their C++ lists)."""
     import alignn_tpu.native
+    import alignn_tpu_torch.native
 
-    monkeypatch.setattr(alignn_tpu.native, "periodic_pairs_native",
-                        lambda *a, **k: None)
+    for mod in (alignn_tpu.native, alignn_tpu_torch.native):
+        monkeypatch.setattr(mod, "periodic_pairs_native",
+                            lambda *a, **k: None)
 
 
 def test_records_to_graphs_match_jax(numpy_neighbors):

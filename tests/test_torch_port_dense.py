@@ -345,9 +345,10 @@ def test_dense_model_matches_sparse_layout(dense_model_results):
 @pytest.fixture(scope="module")
 def si_dense_results():
     """Full width, committed Si weights, use_canonize: true, rattled
-    diamond8; both Calculators with dense=True.  The JAX side takes the
-    numpy neighbour search, as the port does."""
+    diamond8; both Calculators with dense=True, both with the numpy
+    neighbour search."""
     import alignn_tpu.native
+    import alignn_tpu_torch.native
     from alignn_tpu.chem.atoms import Atoms as JAtoms
     from alignn_tpu.ff.calculator import Calculator as JCalculator
     from alignn_tpu.zoo import load_model_dir
@@ -356,18 +357,18 @@ def si_dense_results():
     atoms = _si8(rattle=0.05)
     jm, jv, jc = load_model_dir(SI_DIR)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(alignn_tpu.native, "periodic_pairs_native",
-                   lambda *a, **k: None)
+        for mod in (alignn_tpu.native, alignn_tpu_torch.native):
+            mp.setattr(mod, "periodic_pairs_native", lambda *a, **k: None)
         jcalc = JCalculator(model=jm, variables=jv,
                             config={**jc, "use_canonize": True}, dense=True)
         jr = jcalc.calculate(JAtoms(lattice_mat=atoms.lattice_mat,
                                     frac_coords=atoms.frac_coords,
                                     elements=atoms.elements))
-    base = Calculator(path=SI_DIR, device="cpu")
-    calc = Calculator(model=base.model,
-                      config={**base.config, "use_canonize": True},
-                      dense=True, device="cpu")
-    tr = calc.calculate(atoms)
+        base = Calculator(path=SI_DIR, device="cpu")
+        calc = Calculator(model=base.model,
+                          config={**base.config, "use_canonize": True},
+                          dense=True, device="cpu")
+        tr = calc.calculate(atoms)
     return jr, tr, jcalc, calc
 
 

@@ -47,6 +47,7 @@ def _cell(lattice, frac):
 def results(request):
     """(JAX result, port result, port Calculator) of one potential."""
     import alignn_tpu.native
+    import alignn_tpu_torch.native
     from alignn_tpu.chem.atoms import Atoms as JAtoms
     from alignn_tpu.ff.calculator import Calculator as JCalculator
     from alignn_tpu_torch.chem.atoms import Atoms
@@ -56,16 +57,16 @@ def results(request):
     frac = _cell(lattice, frac)
     path = os.path.join(REPO, "docs", request.param)
     with pytest.MonkeyPatch.context() as mp:
-        # the JAX package's optional C++ cell list orders tied pairs
-        # otherwise than the numpy search the port uses
-        mp.setattr(alignn_tpu.native, "periodic_pairs_native",
-                   lambda *a, **k: None)
+        # a C++ cell list orders tied pairs otherwise than the numpy
+        # search: both packages take the numpy search here
+        for mod in (alignn_tpu.native, alignn_tpu_torch.native):
+            mp.setattr(mod, "periodic_pairs_native", lambda *a, **k: None)
         jr = JCalculator(path=path).calculate(JAtoms(
             lattice_mat=lattice, frac_coords=frac,
             elements=[element] * len(frac)))
-    calc = Calculator(path=path, device="cpu")
-    tr = calc.calculate(Atoms(lattice_mat=lattice, frac_coords=frac,
-                              elements=[element] * len(frac)))
+        calc = Calculator(path=path, device="cpu")
+        tr = calc.calculate(Atoms(lattice_mat=lattice, frac_coords=frac,
+                                  elements=[element] * len(frac)))
     return jr, tr, calc
 
 
