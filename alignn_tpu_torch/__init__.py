@@ -12,16 +12,17 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
-import torch
 
-
-def resolve_device(device: Optional[Union[str, torch.device]] = None
-                   ) -> torch.device:
+def resolve_device(device: Optional[Union[str, "torch.device"]] = None
+                   ) -> "torch.device":
     """The device an entry point runs on: ``cuda`` unless the caller asks.
 
     Asking for nothing on a host without a GPU raises instead of running
-    silently on the CPU.
+    silently on the CPU.  (torch is imported here, not with the package:
+    the graph-building workers of ``data/dataset.py`` import no torch.)
     """
+    import torch
+
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(

@@ -21,8 +21,6 @@ import threading
 from pathlib import Path
 from typing import Dict
 
-import torch
-
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "alignn_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -39,8 +37,10 @@ def _raise_on(rc: int, name: str):
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
 
 
-def _stream(x: torch.Tensor) -> int:
+def _stream(x: "torch.Tensor") -> int:
     """The current CUDA stream of x's device, as a C pointer."""
+    import torch   # here, so that the host code's builds import no torch
+
     return torch.cuda.current_stream(x.device).cuda_stream
 
 

@@ -1,0 +1,207 @@
+"""Folder training CLI (counterpart of ``alignn_tpu/cli/train.py``).
+
+    python -m alignn_tpu_torch.cli.train --root_dir DATA \
+        --config_name config.json --output_dir out [--device cpu]
+
+Reads ``id_prop.{csv,json,json.zip}`` and the structures of a folder,
+builds the loaders (graph cache under ``<output_dir>/graph_cache`` with
+``use_cache``) and runs :func:`~alignn_tpu_torch.train.trainer.
+train_model` on ``--device`` (``cuda`` by default).  ``--resume auto``
+continues from ``<output_dir>/restart.mpk``; ``--restart_model_path``
+starts from a weights file.  Data parallelism (``--devices`` > 1) and
+``--profile`` are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import sys
+from typing import Any, Dict, Optional
+
+from alignn_tpu_torch import resolve_device
+from alignn_tpu_torch.config import TrainingConfig
+from alignn_tpu_torch.data.dataset import load_folder_records
+from alignn_tpu_torch.data.loader import get_train_val_loaders
+from alignn_tpu_torch.train.trainer import train_model
+
+
+def train_for_folder(
+    root_dir: str = "examples/sample_data",
+    config_name: str = "config.json",
+    classification_threshold: Optional[float] = None,
+    batch_size: Optional[int] = None,
+    epochs: Optional[int] = None,
+    id_key: str = "jid",
+    target_key: str = "total_energy",
+    atomwise_key: str = "forces",
+    gradwise_key: str = "forces",
+    stresswise_key: str = "stresses",
+    additional_output_key: str = "additional_output",
+    file_format: str = "poscar",
+    restart_model_path: Optional[str] = None,
+    resume: Optional[str] = None,
+    output_dir: Optional[str] = None,
+    devices: int = 1,
+    profile: Optional[str] = None,
+    device=None,
+) -> Dict[str, Any]:
+    """Train from a folder of structures and id_prop targets; returns the
+    trainer's summary, with the loaders' ``graph_stats``."""
+    if devices > 1:
+        raise NotImplementedError(
+            "--devices > 1 (data parallelism) is not ported yet "
+            "(ROADMAP.md §1 item 7)")
+    if profile:
+        raise NotImplementedError(
+            "--profile is not ported yet (ROADMAP.md §1 item 8)")
+    if not os.path.exists(config_name):
+        raise FileNotFoundError(
+            f"config file not found: {config_name} "
+            "(pass --config_name pointing at a TrainingConfig json)")
+    device = resolve_device(device)
+    config = TrainingConfig.from_json(config_name)
+    if classification_threshold is not None:
+        config.classification_threshold = float(classification_threshold)
+    if output_dir is not None:
+        config.output_dir = output_dir
+    if batch_size is not None:
+        config.batch_size = int(batch_size)
+    if epochs is not None:
+        config.epochs = int(epochs)
+
+    m = config.model
+    train_grad = getattr(m, "calculate_gradient", False) and \
+        getattr(m, "gradwise_weight", 0) != 0
+    train_stress = getattr(m, "calculate_gradient", False) and \
+        getattr(m, "stresswise_weight", 0) != 0
+    train_atom = getattr(m, "atomwise_weight", 0) != 0
+    train_additional = getattr(m, "additional_output_features", 0) > 0 and \
+        getattr(m, "additional_output_weight", 0) != 0
+    records = load_folder_records(
+        root_dir, target_key=target_key, id_key=id_key,
+        atomwise_key=atomwise_key, gradwise_key=gradwise_key,
+        stresswise_key=stresswise_key,
+        additional_output_key=additional_output_key,
+        file_format=file_format, train_atom=train_atom,
+        train_grad=train_grad, train_stress=train_stress,
+        train_additional_output=train_additional)
+    print("len dataset", len(records))
+
+    # a multi-output csv sets the model's output width
+    if isinstance(records[0]["target"], list):
+        widths = {len(r["target"]) for r in records}
+        if len(widths) != 1:
+            raise ValueError("Make sure the outputs are of same size.")
+        config.model = dataclasses.replace(
+            config.model, output_features=widths.pop())
+
+    tr, va, te, _mad = get_train_val_loaders(
+        records,
+        id_tag=id_key,
+        atom_features=config.atom_features,
+        neighbor_strategy=config.neighbor_strategy,
+        cutoff=config.cutoff,
+        cutoff_extra=config.cutoff_extra,
+        max_neighbors=config.max_neighbors,
+        use_canonize=config.use_canonize,
+        compute_line_graph=config.compute_line_graph,
+        batch_size=config.batch_size,
+        split_seed=config.random_seed or 123,
+        train_ratio=config.train_ratio,
+        val_ratio=config.val_ratio,
+        test_ratio=config.test_ratio,
+        n_train=config.n_train,
+        n_val=config.n_val,
+        n_test=config.n_test,
+        keep_data_order=config.keep_data_order,
+        classification_threshold=config.classification_threshold,
+        target_multiplication_factor=config.target_multiplication_factor,
+        standard_scalar_and_pca=config.standard_scalar_and_pca,
+        output_dir=config.output_dir,
+        num_workers=config.num_workers,
+        target_width=getattr(config.model, "output_features", 1),
+        atomwise_width=getattr(m, "atomwise_output_features", 0),
+        additional_width=getattr(m, "additional_output_features", 0),
+        bucket_slack=config.bucket_slack,
+        dense=config.dense_neighborhoods,
+        cache_dir=(os.path.join(config.output_dir, "graph_cache")
+                   if config.use_cache else None),
+        per_species_energy_baseline=config.per_species_energy_baseline,
+        lg_cutoff=config.lg_cutoff,
+        device=device,
+    )
+    restart_state_path = None
+    if resume:
+        restart_state_path = (os.path.join(config.output_dir, "restart.mpk")
+                              if resume == "auto" else resume)
+        if not os.path.exists(restart_state_path):
+            print(f"[resume] no checkpoint at {restart_state_path}; "
+                  f"starting fresh")
+            restart_state_path = None
+    summary = train_model(config, tr, va, te,
+                          restart_params_path=restart_model_path,
+                          restart_state_path=restart_state_path)
+    summary["graph_stats"] = tr.graph_stats
+    return summary
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="alignn_tpu_torch training (folder mode)")
+    p.add_argument("--root_dir", default="./",
+                   help="folder with id_prop.csv/json and structure files")
+    p.add_argument("--config_name", default="config.json")
+    p.add_argument("--file_format", default="poscar",
+                   choices=["poscar", "cif", "xyz", "pdb"])
+    p.add_argument("--classification_threshold", default=None, type=float)
+    p.add_argument("--batch_size", default=None, type=int)
+    p.add_argument("--epochs", default=None, type=int)
+    p.add_argument("--id_key", default="jid")
+    p.add_argument("--target_key", default="total_energy")
+    p.add_argument("--atomwise_key", default="forces")
+    p.add_argument("--force_key", default="forces", dest="gradwise_key")
+    p.add_argument("--stresswise_key", default="stresses")
+    p.add_argument("--additional_output_key", default="additional_output")
+    p.add_argument("--output_dir", default=None)
+    p.add_argument("--restart_model_path", default=None,
+                   help="start from the weights of this .mpk")
+    p.add_argument("--resume", default=None,
+                   help='whole-state resume: "auto" = '
+                        "<output_dir>/restart.mpk, or a path")
+    p.add_argument("--devices", default=1, type=int,
+                   help="data-parallel device count (only 1 is ported)")
+    p.add_argument("--profile", default=None,
+                   help="profile one train step (not ported yet)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to train on (cuda or cpu)")
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    return train_for_folder(
+        root_dir=args.root_dir,
+        config_name=args.config_name,
+        classification_threshold=args.classification_threshold,
+        batch_size=args.batch_size,
+        epochs=args.epochs,
+        id_key=args.id_key,
+        target_key=args.target_key,
+        atomwise_key=args.atomwise_key,
+        gradwise_key=args.gradwise_key,
+        stresswise_key=args.stresswise_key,
+        additional_output_key=args.additional_output_key,
+        file_format=args.file_format,
+        restart_model_path=args.restart_model_path,
+        resume=args.resume,
+        output_dir=args.output_dir,
+        devices=args.devices,
+        profile=args.profile,
+        device=args.device,
+    )
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -15,20 +15,38 @@ Counterpart of ``BucketedLoader`` and the bucket sizing of
 Batches land on the loader's `device`, ``cuda`` unless another is asked
 for (:func:`alignn_tpu_torch.resolve_device`).  Stacking ``num_shards``
 batches for data parallelism waits for the DDP port.
+
+:func:`get_train_val_loaders` turns records into the three loaders of a
+training run: filter, split (``ids_train_val_test.json``), the optional
+per-species baseline, the graphs (built, or read from the on-disk cache
+when its fingerprint matches), the ``mad`` file and optional standard
+scaling (``sc.pkl``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
+import os
+import pickle
 import queue
 import threading
-from typing import Iterator, List, Optional, Sequence
+import time
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from alignn_tpu_torch import resolve_device
-from alignn_tpu_torch.data.dataset import GraphDataset
+from alignn_tpu_torch.chem.atoms import dumpjson
+from alignn_tpu_torch.data.baseline import (baseline_per_atom,
+                                            fit_species_baseline)
+from alignn_tpu_torch.data.cache import GraphCache, GraphCacheWriter
+from alignn_tpu_torch.data.dataset import (GraphDataset, LazyCacheView,
+                                           filter_records, records_to_graphs,
+                                           records_to_graphs_iter)
+from alignn_tpu_torch.data.splits import get_id_train_val_test
 from alignn_tpu_torch.graph.batch import (WIN_FIELDS, BucketSpec, GraphBatch,
                                           _round_up, batch_graphs)
 from alignn_tpu_torch.graph.build import GraphData
@@ -124,6 +142,9 @@ class BucketedLoader:
             raise ValueError("dense=True requires a dense BucketSpec "
                              "(graph.dense.dense_spec_for_graphs)")
         self.spec = spec
+        # the graph stage's seconds and cache hits, where
+        # get_train_val_loaders made this loader
+        self.graph_stats: Optional[Dict[str, Any]] = None
 
     def __len__(self) -> int:
         n, b = len(self._order()), self.batch_size
@@ -232,3 +253,195 @@ class BucketedLoader:
         order, b = self._order(), self.batch_size
         return [[self.dataset.ids[i] for i in order[s * b:(s + 1) * b]]
                 for s in range(len(self))]
+
+
+_LABEL_KEYS = ("target", "atomwise_target", "atomwise_grad", "stresses",
+               "additional", "extra_features")
+
+
+def _label_digest(rec: Dict[str, Any]) -> str:
+    """Hash of every label a cached graph carries: regenerated forces with
+    unchanged ids and energies must miss the cache."""
+    h = hashlib.sha256()
+    for key in _LABEL_KEYS:
+        v = rec.get(key)
+        h.update(b"-" if v is None else np.ascontiguousarray(
+            np.asarray(v, dtype=np.float64)).tobytes())
+    return h.hexdigest()
+
+
+def _cached_dataset(recs, ids, build_kwargs: Dict[str, Any],
+                    num_workers: int, path: str
+                    ) -> Tuple[GraphDataset, bool]:
+    """(dataset, hit): the split's graphs from the cache at `path` when its
+    fingerprint (graph arguments, ids, labels) matches, else built,
+    written there one at a time, and read back lazily.  The meta file
+    keeps each graph's counts (with the max in-degree, for dense buckets)
+    and targets, so the loader sizes its bucket and the MAD comes without
+    reading a graph."""
+    fingerprint = hashlib.sha256(json.dumps(
+        [build_kwargs, ids, [_label_digest(r) for r in recs]],
+        sort_keys=True, default=str).encode()).hexdigest()
+    meta_path = path + ".meta.json"
+    meta = None
+    if GraphCache.exists(path) and os.path.exists(meta_path):
+        with open(meta_path) as f:
+            meta = json.load(f)
+        if not (meta.get("fingerprint") == fingerprint
+                and meta.get("n") == len(recs) and "counts" in meta):
+            meta = None
+    hit = meta is not None
+    if not hit:
+        counts, targets = [], []
+        with GraphCacheWriter(path) as w:
+            for g in records_to_graphs_iter(recs, num_workers=num_workers,
+                                            **build_kwargs):
+                w.put(g)
+                indeg = int(np.bincount(g.dst, minlength=g.num_nodes)
+                            .max()) if g.num_edges else 0
+                counts.append([g.num_nodes, g.num_edges, g.num_lg_edges,
+                               indeg])
+                targets.append(np.atleast_1d(np.asarray(
+                    g.target, dtype=np.float64)).tolist()
+                    if g.target is not None else [0.0])
+        meta = {"fingerprint": fingerprint, "n": len(recs),
+                "counts": counts, "targets": targets}
+        with open(meta_path, "w") as f:
+            json.dump(meta, f)
+    return GraphDataset(graphs=LazyCacheView(GraphCache(path)), ids=ids,
+                        metadata={"counts": meta["counts"],
+                                  "targets": meta["targets"]}), hit
+
+
+def get_train_val_loaders(
+    records: Sequence[dict],
+    target: str = "target",
+    id_tag: str = "jid",
+    atom_features: str = "cgcnn",
+    neighbor_strategy: str = "k-nearest",
+    cutoff: float = 8.0,
+    cutoff_extra: float = 3.0,
+    max_neighbors: int = 12,
+    use_canonize: bool = True,
+    compute_line_graph: bool = True,
+    batch_size: int = 64,
+    split_seed: int = 123,
+    train_ratio: Optional[float] = 0.8,
+    val_ratio: Optional[float] = 0.1,
+    test_ratio: Optional[float] = 0.1,
+    n_train: Optional[int] = None,
+    n_val: Optional[int] = None,
+    n_test: Optional[int] = None,
+    keep_data_order: bool = True,
+    classification_threshold: Optional[float] = None,
+    target_multiplication_factor: Optional[float] = None,
+    standard_scalar_and_pca: bool = False,
+    output_dir: str = ".",
+    num_workers: int = 0,
+    num_shards: int = 1,
+    target_width: int = 1,
+    atomwise_width: int = 0,
+    additional_width: int = 0,
+    bucket_slack: float = 1.0,
+    cache_dir: Optional[str] = None,
+    dense: bool = False,
+    per_species_energy_baseline: bool = False,
+    lg_cutoff: Optional[float] = None,
+    device: Optional[torch.device | str] = None,
+) -> Tuple[BucketedLoader, BucketedLoader, BucketedLoader, float]:
+    """Records -> (train_loader, val_loader, test_loader, mad), as the JAX
+    function: the train loader shuffles and drops its last partial batch,
+    the val loader drops it only when the split holds a whole batch, the
+    test loader takes batch 1.  The train loader's ``graph_stats`` holds
+    the graph stage's seconds and whether each split came from the
+    cache."""
+    if num_shards > 1:
+        raise NotImplementedError(
+            "num_shards > 1 (data parallelism) is not ported yet "
+            "(ROADMAP.md §1 item 7)")
+    device = resolve_device(device)
+    dat = filter_records(
+        records, target=target,
+        classification_threshold=classification_threshold,
+        target_multiplication_factor=target_multiplication_factor)
+    if target != "target":
+        # the graph build reads the canonical "target" key
+        dat = [{**r, "target": r[target]} for r in dat]
+    id_train, id_val, id_test = get_id_train_val_test(
+        total_size=len(dat), split_seed=split_seed,
+        train_ratio=train_ratio, val_ratio=val_ratio, test_ratio=test_ratio,
+        n_train=n_train, n_test=n_test, n_val=n_val,
+        keep_data_order=keep_data_order)
+    os.makedirs(output_dir, exist_ok=True)
+    dumpjson({"id_train": [dat[i][id_tag] for i in id_train],
+              "id_val": [dat[i][id_tag] for i in id_val],
+              "id_test": [dat[i][id_tag] for i in id_test]},
+             os.path.join(output_dir, "ids_train_val_test.json"))
+
+    if per_species_energy_baseline:
+        # offsets fit on the train split only; every split's targets
+        # become residuals (before the cache, whose fingerprint hashes
+        # the targets)
+        mu = fit_species_baseline([dat[i] for i in id_train])
+        dat = [{**r, "target": float(
+            np.asarray(r["target"], dtype=np.float64).reshape(-1)[0]
+            - baseline_per_atom(r["atoms"]["elements"], mu))} for r in dat]
+        dumpjson({"per_atom": True, "elements": mu},
+                 os.path.join(output_dir, "species_baseline.json"))
+        print(f"[baseline] per-species reference energies (eV/atom): "
+              f"{ {k: round(v, 4) for k, v in mu.items()} }")
+
+    build_kwargs = dict(
+        neighbor_strategy=neighbor_strategy, cutoff=cutoff,
+        max_neighbors=max_neighbors, use_canonize=use_canonize,
+        compute_line_graph=compute_line_graph, cutoff_extra=cutoff_extra,
+        lg_cutoff=lg_cutoff)
+    stats: Dict[str, Any] = {"graph_s": 0.0, "cached": {}}
+
+    def make_ds(idxs, split: str) -> GraphDataset:
+        recs = [dat[i] for i in idxs]
+        ids = [r[id_tag] for r in recs]
+        t0 = time.perf_counter()
+        if cache_dir is None:
+            ds = GraphDataset(graphs=records_to_graphs(
+                recs, num_workers=num_workers, **build_kwargs), ids=ids)
+        else:
+            ds, stats["cached"][split] = _cached_dataset(
+                recs, ids, build_kwargs, num_workers,
+                os.path.join(cache_dir, f"graphs_{split}"))
+        stats["graph_s"] += time.perf_counter() - t0
+        return ds
+
+    train_ds = make_ds(id_train, "train")
+    val_ds = make_ds(id_val, "val")
+    test_ds = make_ds(id_test, "test")
+
+    mad = train_ds.mad() if len(train_ds) else 0.0
+    with open(os.path.join(output_dir, "mad"), "w") as f:
+        f.write(f"MAX val: {mad}\n")
+        f.write(f"MAD of training set: {mad}\n")
+        f.write(f"Baseline MAE: {mad}\n")
+
+    if standard_scalar_and_pca and len(train_ds):
+        y = train_ds.targets()
+        mean, std = float(np.mean(y)), float(np.std(y)) or 1.0
+        with open(os.path.join(output_dir, "sc.pkl"), "wb") as f:
+            pickle.dump({"mean": mean, "std": std}, f)
+        for ds in (train_ds, val_ds, test_ds):
+            ds.scale_targets(mean, std)
+
+    shared = dict(atom_features=atom_features, target_width=target_width,
+                  atomwise_width=atomwise_width,
+                  additional_width=additional_width, seed=split_seed,
+                  bucket_slack=bucket_slack, dense=dense, device=device)
+    train_loader = BucketedLoader(train_ds, batch_size, shuffle=True,
+                                  drop_last=True, **shared)
+    # a val split smaller than one batch keeps its partial batch instead
+    # of validating on nothing
+    val_loader = BucketedLoader(val_ds, batch_size, shuffle=False,
+                                drop_last=len(val_ds) >= batch_size,
+                                **shared)
+    test_loader = BucketedLoader(test_ds, 1, shuffle=False, drop_last=False,
+                                 **shared)
+    train_loader.graph_stats = stats
+    return train_loader, val_loader, test_loader, mad

@@ -355,29 +355,38 @@ ROCKSALT_FRAC = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5],
 ROCKSALT_ELEMENTS = ["Na", "Cl", "K", "Br", "Mg", "O", "Ca", "S"]
 
 
-def rocksalt_graphs(n: int, seed: int = 0, rattle: float = 0.02,
-                    **graph_kw) -> list:
+def rocksalt_cells(n: int, seed: int = 0, rattle: float = 0.02):
     """`n` labelled, rattled 8-atom rocksalt cells (cubic, a = 4.2 + 0.3
-    N(0, 1) Å), each as a k-NN graph (12 neighbours, cutoff 8 Å, or the
-    :func:`build_graph` arguments `graph_kw` give): the synthetic batch of
-    ``bench.py``.
+    N(0, 1) Å), yielded as (Atoms, energy target, forces [8, 3]).
 
     One numpy generator from `seed` draws, cell by cell: the lattice
     constant, the rattle of the fractional coordinates (`rattle` times
-    N(0, 1)), the energy target N(0, 1) and the forces 0.1 N(0, 1); the
-    stress label is 0.01 I.  ``bench.py`` draws in this order with rattle
-    0.02, ``tests/test_dense.py`` with rattle 0.03.
+    N(0, 1)), the energy target N(0, 1) and the forces 0.1 N(0, 1).
+    ``bench.py`` draws in this order with rattle 0.02,
+    ``tests/test_dense.py`` with rattle 0.03.
     """
     rng = np.random.default_rng(seed)
-    graphs = []
     for _ in range(n):
         a = 4.2 + 0.3 * rng.standard_normal()
         frac = ROCKSALT_FRAC + rattle * rng.standard_normal((8, 3))
-        g = build_graph(Atoms(lattice_mat=np.eye(3) * a, frac_coords=frac,
-                              elements=ROCKSALT_ELEMENTS),
-                        **{"cutoff": 8.0, "max_neighbors": 12, **graph_kw})
-        g.target = np.array([rng.standard_normal()])
-        g.forces = rng.standard_normal((8, 3)) * 0.1
+        atoms = Atoms(lattice_mat=np.eye(3) * a, frac_coords=frac,
+                      elements=ROCKSALT_ELEMENTS)
+        target = rng.standard_normal()
+        yield atoms, target, rng.standard_normal((8, 3)) * 0.1
+
+
+def rocksalt_graphs(n: int, seed: int = 0, rattle: float = 0.02,
+                    **graph_kw) -> list:
+    """The cells of :func:`rocksalt_cells`, each as a k-NN graph (12
+    neighbours, cutoff 8 Å, or the :func:`build_graph` arguments
+    `graph_kw` give) with its target, forces and the stress label 0.01 I:
+    the synthetic batch of ``bench.py``."""
+    graphs = []
+    for atoms, target, forces in rocksalt_cells(n, seed, rattle):
+        g = build_graph(atoms, **{"cutoff": 8.0, "max_neighbors": 12,
+                                  **graph_kw})
+        g.target = np.array([target])
+        g.forces = forces
         g.stress = np.eye(3) * 0.01
         graphs.append(g)
     return graphs

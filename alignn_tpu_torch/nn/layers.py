@@ -43,12 +43,62 @@ class MaskedLayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.epsilon = epsilon
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`mask` is unused: per-row statistics leave padded rows alone."""
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         mean = xf.mean(dim=-1, keepdim=True)
         var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)
         y = (xf - mean) * torch.rsqrt(var + self.epsilon)
         return (y * self.weight + self.bias).to(x.dtype)
+
+
+class MaskedBatchNorm(nn.Module):
+    """BatchNorm over the rows whose mask is 1 (torch ``BatchNorm1d``
+    semantics without its padded rows).
+
+    In training the output normalises with the biased variance of the
+    masked rows, and the running statistics (buffers ``mean`` and ``var``,
+    the JAX tree's ``batch_stats``) move by momentum 0.1 towards the mean
+    and the unbiased variance var * cnt / max(cnt - 1, 1), once per
+    forward.  In eval the running statistics normalise.  Statistics and
+    affine run in at least f32; the output keeps the input dtype.
+    ``nn.BatchNorm1d`` would count the padded rows and the trash slot.
+    """
+
+    def __init__(self, features: int, momentum: float = 0.1,
+                 epsilon: float = 1e-5):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+        self.momentum = momentum
+        self.epsilon = epsilon
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                train: Optional[bool] = None) -> torch.Tensor:
+        """`train` None follows the module's mode (``model.train()``)."""
+        train = self.training if train is None else train
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        if not train:
+            mean, var = self.mean.to(xf.dtype), self.var.to(xf.dtype)
+        else:
+            w = xf.new_ones(x.shape[0]) if mask is None else mask.to(xf.dtype)
+            cnt = torch.clamp_min(w.sum(), 1.0)
+            mean = (xf * w[:, None]).sum(dim=0) / cnt
+            var = torch.clamp_min(
+                ((xf * xf) * w[:, None]).sum(dim=0) / cnt - mean * mean, 0.0)
+            with torch.no_grad():
+                m = self.momentum
+                unbiased = var * cnt / torch.clamp_min(cnt - 1.0, 1.0)
+                self.mean.copy_((1 - m) * self.mean + m * mean.float())
+                self.var.copy_((1 - m) * self.var + m * unbiased.float())
+        y = (xf - mean) * torch.rsqrt(var + self.epsilon)
+        return (y * self.weight + self.bias).to(x.dtype)
+
+
+NORMS = {"layernorm": MaskedLayerNorm, "batchnorm": MaskedBatchNorm}
 
 
 class RBFExpansion(nn.Module):
@@ -67,15 +117,17 @@ class RBFExpansion(nn.Module):
 
 
 class MLPLayer(nn.Module):
-    """Linear -> LayerNorm -> SiLU."""
+    """Linear -> LayerNorm or masked BatchNorm -> SiLU."""
 
-    def __init__(self, in_features: int, features: int):
+    def __init__(self, in_features: int, features: int,
+                 norm: str = "layernorm"):
         super().__init__()
         self.linear = Dense(in_features, features)
-        self.norm = MaskedLayerNorm(features)
+        self.norm = NORMS[norm](features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.silu(self.norm(self.linear(x)))
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return F.silu(self.norm(self.linear(x), mask))
 
 
 class DenseWiring(NamedTuple):
@@ -110,24 +162,33 @@ class EdgeGatedGraphConv(nn.Module):
 
     With a :class:`DenseWiring` the node stage runs on the dense layout
     (aggregation K3), and :meth:`pair_stage` is the dense L-stage (K4), or
-    with ``ALIGNN_TPU_FUSED_LSTAGE`` set the fused L-stage (K6, K7).
+    with ``ALIGNN_TPU_FUSED_LSTAGE`` set and LayerNorm tails the fused
+    L-stage (K6, K7).
+
+    ``norm="batchnorm"`` (the property model) makes both tails masked
+    BatchNorms: the node tail's statistics count the rows of
+    `node_mask`, the edge tail's those of `edge_mask` (on the L-stage the
+    nodes are g's edges and the edges its angle pairs).
     """
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, norm: str = "layernorm"):
         super().__init__()
         self.features = features
+        self.norm = norm
         for name in ("src_gate", "dst_gate", "edge_gate", "src_update",
                      "dst_update"):
             setattr(self, name, Dense(features, features))
-        self.norm_nodes = MaskedLayerNorm(features)
-        self.norm_edges = MaskedLayerNorm(features)
+        self.norm_nodes = NORMS[norm](features)
+        self.norm_edges = NORMS[norm](features)
 
     def forward(self, x: torch.Tensor, e: torch.Tensor, g: Incidence,
                 dense: Optional[DenseWiring] = None,
                 windows: Tuple[int, int, int] = (0, 0, 0),
-                edge_weight: Optional[torch.Tensor] = None):
+                edge_weight: Optional[torch.Tensor] = None,
+                node_mask: Optional[torch.Tensor] = None,
+                edge_mask: Optional[torch.Tensor] = None):
         if dense is not None:
-            return self._dense_node_stage(x, e, g, dense)
+            return self._dense_node_stage(x, e, g, dense, node_mask)
         f = self.features
         w_src, w_dst, w_src_sorted = windows
         cat_e = gather_nodes(
@@ -145,11 +206,13 @@ class EdgeGatedGraphConv(nn.Module):
         else:
             h = weighted_aggregate(
                 bh_e, torch.sigmoid(m) * edge_weight[:, None], g.dst)
-        x_new = x + F.silu(self.norm_nodes(self.src_update(x) + h))
-        e_new = e + F.silu(self.norm_edges(m))
+        x_new = x + F.silu(self.norm_nodes(self.src_update(x) + h,
+                                           node_mask))
+        e_new = e + F.silu(self.norm_edges(m, edge_mask))
         return x_new, e_new
 
-    def _dense_node_stage(self, x, e, g: Incidence, dense: DenseWiring):
+    def _dense_node_stage(self, x, e, g: Incidence, dense: DenseWiring,
+                          node_mask: Optional[torch.Tensor]):
         """Node stage on the dense layout (JAX ``_dense_gather_aggregate``):
         the ``[sg | bh]`` src gather transposes into K2, the dst side is a
         block broadcast (transpose: a block sum), the slot mask folds into
@@ -164,8 +227,9 @@ class EdgeGatedGraphConv(nn.Module):
         m = (sg_e.reshape(n, D, f) + dg[:, None, :]).reshape(-1, f) \
             + self.edge_gate(e)
         h = dense_gated_aggregate(fold_mask(m, dense.edge_mask), bh_e, D)
-        x_new = x + F.silu(self.norm_nodes(self.src_update(x) + h))
-        e_new = e + F.silu(self.norm_edges(m))
+        x_new = x + F.silu(self.norm_nodes(self.src_update(x) + h,
+                                           node_mask))
+        e_new = e + F.silu(self.norm_edges(m, dense.edge_mask))
         return x_new, e_new
 
     def pair_stage(self, x: torch.Tensor, e: torch.Tensor,
@@ -180,9 +244,11 @@ class EdgeGatedGraphConv(nn.Module):
         mask-folded m2 (only masked pair rows see the shift).
 
         With ``ALIGNN_TPU_FUSED_LSTAGE`` set (the JAX package's own switch,
-        read per call as JAX reads it) the stage runs fused instead.
+        read per call as JAX reads it) a LayerNorm stage runs fused
+        instead; a BatchNorm stage stays here, as in JAX.
         """
-        if os.environ.get("ALIGNN_TPU_FUSED_LSTAGE"):
+        if self.norm == "layernorm" and \
+                os.environ.get("ALIGNN_TPU_FUSED_LSTAGE"):
             return self._fused_pair_stage(x, e, dense)
         f, D = self.features, dense.D
         n = x.shape[0] // D
@@ -194,8 +260,9 @@ class EdgeGatedGraphConv(nn.Module):
         m2 = fold_mask(m2, dense.lg_mask)
         h = permute_rows(dense_pair_aggregate(m2, bh, D), dense.rev,
                          dense.rev)
-        x_new = x + F.silu(self.norm_nodes(self.src_update(x) + h))
-        e_new = e + F.silu(self.norm_edges(m2))
+        x_new = x + F.silu(self.norm_nodes(self.src_update(x) + h,
+                                           dense.edge_mask))
+        e_new = e + F.silu(self.norm_edges(m2, dense.lg_mask))
         return x_new, e_new
 
     def _fused_pair_stage(self, x, e, dense: DenseWiring):
@@ -222,28 +289,33 @@ class EdgeGatedGraphConv(nn.Module):
 class ALIGNNConv(nn.Module):
     """One ALIGNN layer: EGGC on g, then EGGC on L(g)."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, norm: str = "layernorm"):
         super().__init__()
-        self.node_update = EdgeGatedGraphConv(features)
-        self.edge_update = EdgeGatedGraphConv(features)
+        self.node_update = EdgeGatedGraphConv(features, norm)
+        self.edge_update = EdgeGatedGraphConv(features, norm)
 
     def forward(self, x, y, z, g: Incidence, lg: Optional[Incidence],
                 dense: Optional[DenseWiring] = None,
                 windows: Tuple[int, int, int] = (0, 0, 0),
                 lg_windows: Tuple[int, int, int] = (0, 0, 0),
                 edge_weight: Optional[torch.Tensor] = None,
-                lg_weight: Optional[torch.Tensor] = None):
+                lg_weight: Optional[torch.Tensor] = None,
+                masks: Tuple[Optional[torch.Tensor], ...] = (None,) * 3):
         """`edge_weight` [E] weighs the node stage's edges, `lg_weight`
         [L] the line-graph stage's (soft weights; the sparse layout only,
-        as the model enforces)."""
+        as the model enforces).  `masks` = (node, edge, lg) row masks, read
+        by BatchNorm tails."""
+        node_mask, edge_mask, lg_mask = masks
         if dense is not None:
             # the dense L-stage is local pairs wired by rev: it reads no
             # line-graph index arrays
-            x, m = self.node_update(x, y, g, dense)
+            x, m = self.node_update(x, y, g, dense, node_mask=node_mask)
             y, z = self.edge_update.pair_stage(m, z, dense)
             return x, y, z
         x, m = self.node_update(x, y, g, windows=windows,
-                                edge_weight=edge_weight)
+                                edge_weight=edge_weight,
+                                node_mask=node_mask, edge_mask=edge_mask)
         y, z = self.edge_update(m, z, lg, windows=lg_windows,
-                                edge_weight=lg_weight)
+                                edge_weight=lg_weight,
+                                node_mask=edge_mask, edge_mask=lg_mask)
         return x, y, z

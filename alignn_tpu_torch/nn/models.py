@@ -1,10 +1,13 @@
-"""ALIGNN-FF model (atomwise, LayerNorm flavour) and its E/F/S forward.
+"""The ALIGNN property model and the ALIGNN-FF model with its E/F/S forward.
 
-Counterpart of ``alignn_tpu/nn/models.py`` for ``ALIGNNAtomWise`` on the
-sparse and the dense-neighbourhood layouts (a batch with ``dense_D > 0``,
-graph/dense.py).  Angle cosines are recomputed from the bond vectors `r`
-inside the forward, so the gradient of the energy with respect to `r`
-carries the 3-body terms; forces and the virial stress come from that
+Counterpart of ``alignn_tpu/nn/models.py`` for ``ALIGNN`` (the property
+model: masked BatchNorm, a graph-level head with a link function or a
+classifier) and ``ALIGNNAtomWise`` (the force field, LayerNorm), on the
+sparse and the dense-neighbourhood layouts (a batch with
+``dense_D > 0``, graph/dense.py).  Both share the embedding stack and
+the trunk.  Angle cosines are recomputed from the bond vectors `r`
+inside the forward, so the force field's gradient of the energy with
+respect to `r` carries the 3-body terms; forces and the virial stress come from that
 gradient (:func:`atomwise_forward`), or with ``include_pos_deriv`` from
 the gradient with respect to the atom positions.  Envelope-weighted
 models (``envelope_edge_weights``) weigh every aggregation by a smooth
@@ -23,8 +26,9 @@ from torch import nn
 
 from alignn_tpu_torch.graph.batch import GraphBatch
 from alignn_tpu_torch.nn.layers import (ALIGNNConv, Dense, DenseWiring,
-                                        EdgeGatedGraphConv, MaskedLayerNorm,
-                                        MLPLayer, RBFExpansion)
+                                        EdgeGatedGraphConv, MaskedBatchNorm,
+                                        MaskedLayerNorm, MLPLayer,
+                                        RBFExpansion)
 from alignn_tpu_torch.ops.basis import (bond_cosines, bond_cosines_dense,
                                         cutoff_function_based_edges)
 from alignn_tpu_torch.ops.eggc import gather_nodes, permute_rows, \
@@ -33,6 +37,33 @@ from alignn_tpu_torch.ops.gather import windows_enabled
 from alignn_tpu_torch.ops.segment import graph_readout_mean, segment_sum
 
 EV_A3_TO_GPA = 160.21766208  # 1 eV/Angstrom^3 in GPa
+
+
+@dataclasses.dataclass(frozen=True)
+class ALIGNNConfig:
+    """Hyperparameters of the property model (same fields as the JAX
+    package)."""
+
+    name: str = "alignn"
+    alignn_layers: int = 4
+    gcn_layers: int = 4
+    atom_input_features: int = 92
+    edge_input_features: int = 80
+    triplet_input_features: int = 40
+    embedding_features: int = 64
+    hidden_features: int = 256
+    output_features: int = 1
+    link: str = "identity"  # identity | log | logit
+    zero_inflated: bool = False
+    classification: bool = False
+    num_classes: int = 2
+    extra_features: int = 0
+    remat_layers: bool = False
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "ALIGNNConfig":
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,7 +128,7 @@ def _link_init_bias(link: str):
     return None
 
 
-def _init_link_bias(model: "ALIGNNAtomWise"):
+def _init_link_bias(model: nn.Module):
     """Set ``fc.bias`` to the link's start value, where it has one (not
     for classification, whose head JAX builds without it)."""
     value = None if model.cfg.classification \
@@ -116,44 +147,46 @@ def _apply_link(out: torch.Tensor, link: str) -> torch.Tensor:
 
 
 class _Embeddings(nn.Module):
-    """Atom / bond / angle embedding stack."""
+    """Atom / bond / angle embedding stack; BatchNorm statistics count the
+    node, edge and line-graph masks' rows."""
 
-    def __init__(self, cfg: ALIGNNAtomWiseConfig):
+    def __init__(self, cfg, norm: str = "layernorm"):
         super().__init__()
         hid, emb = cfg.hidden_features, cfg.embedding_features
-        self.atom_embedding = MLPLayer(cfg.atom_input_features, hid)
+        self.atom_embedding = MLPLayer(cfg.atom_input_features, hid, norm)
         self.edge_rbf = RBFExpansion(0.0, 8.0, cfg.edge_input_features)
-        self.edge_embedding_0 = MLPLayer(cfg.edge_input_features, emb)
-        self.edge_embedding_1 = MLPLayer(emb, hid)
+        self.edge_embedding_0 = MLPLayer(cfg.edge_input_features, emb, norm)
+        self.edge_embedding_1 = MLPLayer(emb, hid, norm)
         self.angle_rbf = RBFExpansion(-1.0, 1.0, cfg.triplet_input_features)
-        self.angle_embedding_0 = MLPLayer(cfg.triplet_input_features, emb)
-        self.angle_embedding_1 = MLPLayer(emb, hid)
+        self.angle_embedding_0 = MLPLayer(cfg.triplet_input_features, emb,
+                                          norm)
+        self.angle_embedding_1 = MLPLayer(emb, hid, norm)
 
     def forward(self, batch: GraphBatch, bondlength, cosines,
                 edge_scale=None):
-        x = self.atom_embedding(batch.atom_features)
+        x = self.atom_embedding(batch.atom_features, batch.node_mask)
         y = self.edge_embedding_1(self.edge_embedding_0(
-            self.edge_rbf(bondlength)))
+            self.edge_rbf(bondlength), batch.edge_mask), batch.edge_mask)
         if edge_scale is not None:
             y = y * edge_scale[:, None]
         z = self.angle_embedding_1(self.angle_embedding_0(
-            self.angle_rbf(cosines)))
+            self.angle_rbf(cosines), batch.lg_mask), batch.lg_mask)
         return x, y, z
 
 
 class _Trunk(nn.Module):
     """ALIGNN conv stack + GCN stack."""
 
-    def __init__(self, cfg: ALIGNNAtomWiseConfig):
+    def __init__(self, cfg, norm: str = "layernorm"):
         super().__init__()
         self.alignn_layers = cfg.alignn_layers
         self.gcn_layers = cfg.gcn_layers
         for i in range(cfg.alignn_layers):
             setattr(self, f"alignn_layers_{i}",
-                    ALIGNNConv(cfg.hidden_features))
+                    ALIGNNConv(cfg.hidden_features, norm))
         for i in range(cfg.gcn_layers):
             setattr(self, f"gcn_layers_{i}",
-                    EdgeGatedGraphConv(cfg.hidden_features))
+                    EdgeGatedGraphConv(cfg.hidden_features, norm))
 
     def forward(self, batch: GraphBatch, x, y, z, edge_weight=None,
                 lg_weight=None):
@@ -167,14 +200,54 @@ class _Trunk(nn.Module):
                        batch.win_lg_src_sorted)
         else:
             wins = lg_wins = (0, 0, 0)
+        masks = (batch.node_mask, batch.edge_mask, batch.lg_mask)
         for i in range(self.alignn_layers):
             x, y, z = getattr(self, f"alignn_layers_{i}")(
                 x, y, z, batch.g_index, batch.lg_index, dense, wins, lg_wins,
-                edge_weight, lg_weight)
+                edge_weight, lg_weight, masks)
         for i in range(self.gcn_layers):
             x, y = getattr(self, f"gcn_layers_{i}")(
-                x, y, batch.g_index, dense, wins, edge_weight)
+                x, y, batch.g_index, dense, wins, edge_weight,
+                batch.node_mask, batch.edge_mask)
         return x, y
+
+
+class ALIGNN(nn.Module):
+    """Property model (BatchNorm flavour): ``forward(batch)`` returns
+    [G, output_features] through the link function, or for classification
+    [G, num_classes] log-probabilities; slot G-1 is the trash slot.
+
+    BatchNorm follows the module's mode: ``model.train()`` normalises by
+    the batch's masked statistics and moves the running ones, once per
+    forward; ``model.eval()`` normalises by the running statistics.
+    """
+
+    def __init__(self, cfg: ALIGNNConfig):
+        super().__init__()
+        if cfg.extra_features:
+            raise NotImplementedError(
+                "extra_features is not ported yet (ROADMAP.md §1 item 6)")
+        self.cfg = cfg
+        self.embeddings = _Embeddings(cfg, "batchnorm")
+        self.trunk = _Trunk(cfg, "batchnorm")
+        self.fc = Dense(cfg.hidden_features, cfg.num_classes
+                        if cfg.classification else cfg.output_features)
+        _init_link_bias(self)
+
+    def forward(self, batch: GraphBatch) -> torch.Tensor:
+        cfg = self.cfg
+        bondlength = torch.linalg.norm(batch.r, dim=1)
+        cosines = bond_cosines_dense(batch.r, batch.dense_D) \
+            if batch.dense_D else \
+            bond_cosines(batch.r, batch.lg_src, batch.lg_dst)
+        x, y, z = self.embeddings(batch, bondlength, cosines)
+        x, _y = self.trunk(batch, x, y, z)
+        out = _apply_link(
+            self.fc(graph_readout_mean(x, batch.node_graph, batch.n_nodes)),
+            cfg.link)
+        if cfg.classification:
+            out = torch.log_softmax(out, dim=1)
+        return out
 
 
 class ALIGNNAtomWise(nn.Module):
@@ -263,8 +336,9 @@ def init_parameters(model: nn.Module,
     """Redraw every parameter from `generator` (a CPU generator, so the
     draws do not depend on the device) with the modules' default laws:
     Dense weight and bias U(-1/sqrt(fan_in), 1/sqrt(fan_in)) as
-    ``nn.Linear`` draws them, LayerNorm scale 1 and bias 0, and the
-    output bias of a log link log(0.7), as JAX initialises it."""
+    ``nn.Linear`` draws them, norm scale 1 and bias 0 (BatchNorm running
+    mean 0 and variance 1), and the output bias of a log link log(0.7),
+    as JAX initialises it."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, nn.Linear):
@@ -272,10 +346,13 @@ def init_parameters(model: nn.Module,
                 for p in (m.weight, m.bias):
                     p.copy_(torch.empty(p.shape).uniform_(
                         -bound, bound, generator=generator))
-            elif isinstance(m, MaskedLayerNorm):
+            elif isinstance(m, (MaskedLayerNorm, MaskedBatchNorm)):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
-    if isinstance(model, ALIGNNAtomWise):
+                if isinstance(m, MaskedBatchNorm):
+                    m.mean.zero_()
+                    m.var.fill_(1.0)
+    if isinstance(model, (ALIGNN, ALIGNNAtomWise)):
         _init_link_bias(model)
     return model
 

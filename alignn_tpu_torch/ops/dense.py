@@ -34,9 +34,9 @@ numerator, the denominator and every gradient.
 K3's second order is autograd through its plain backward, as in JAX,
 whose ``gated_aggregate_bwd`` is opt-in and has no kernel.
 
-All four kernels are in ``csrc/dense.cu``.  K3 splits a node's D rows
-over S sub-threads of each 16-byte feature lane, their partial sums
-added in a fixed order in shared memory.  K5a and K5b stage a node's pair rows in shared
+All four kernels are in ``csrc/dense.cu``.  K3 runs one thread per
+(node, 16-byte feature lane), which walks the node's D rows in order.
+K5a and K5b stage a node's pair rows in shared
 memory once (the slab path) and keep their first, two-pass design for D
 too large for a slab (:func:`pair_bwd_occupancy` reads which path and
 how many blocks per SM a shape gets).  Bound on an H100 SXM at the

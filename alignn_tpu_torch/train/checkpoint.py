@@ -1,21 +1,35 @@
-"""Read the JAX package's ``.mpk`` weight checkpoints without flax.
+"""Read and write the JAX package's ``.mpk`` checkpoints without flax.
 
 flax writes checkpoints with ``msgpack``; neither package is a dependency
-of the port, so this module carries a pure-Python decoder for the subset
-flax uses: maps, arrays, str, bin, int, float, nil and bool, plus flax's
-ext types 1 (ndarray: an inner msgpack ``(shape, dtype-name, buffer)``)
-and 3 (numpy scalar, the same payload).
+of the port (the card's host has no ``msgpack``), so this module carries a
+pure-Python decoder and encoder for the subset flax uses: maps, arrays,
+str, bin, int, float, nil and bool, plus flax's ext types 1 (ndarray: an
+inner msgpack ``(shape, dtype-name, buffer)``) and 3 (numpy scalar, the
+same payload).
+
+- :func:`save_params` writes a weights file in the layout of
+  ``alignn_tpu.train.checkpoint.save_params`` (``params``,
+  ``batch_stats``, ``meta``), which alignn_tpu's loaders read;
+  :func:`load_params_with_meta` reads the JAX package's files and the
+  port's.
+- :func:`save_train_state` / :func:`load_train_state` write and read the
+  port's full training state (``restart.mpk``): weights, BatchNorm
+  buffers, the torch optimizer's state, the step, the epoch and
+  ``extra``.  Only the port reads it.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 import warnings
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 from alignn_tpu_torch.chem.features import feature_table_provenance
+from alignn_tpu_torch.nn.convert import flax_from_module, state_dict_from_flax
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
@@ -117,12 +131,179 @@ def msgpack_restore(data: bytes) -> Any:
     return tree
 
 
+def _pack(obj: Any, out: list):
+    """Append the msgpack encoding of `obj` to `out` with flax's choices:
+    arrays and numpy scalars as ext types 1 and 3, str as str, map keys
+    sorted."""
+    if obj is None:
+        out.append(b"\xc0")
+    elif isinstance(obj, (bool, np.bool_)):
+        out.append(b"\xc3" if obj else b"\xc2")
+    elif isinstance(obj, int):
+        out.append(_pack_int(obj))
+    elif isinstance(obj, float):
+        out.append(struct.pack(">Bd", 0xCB, obj))
+    elif isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        n = len(raw)
+        out.append(bytes([0xA0 | n]) if n < 32 else
+                   struct.pack(">BB", 0xD9, n) if n < 1 << 8 else
+                   struct.pack(">BH", 0xDA, n) if n < 1 << 16 else
+                   struct.pack(">BI", 0xDB, n))
+        out.append(raw)
+    elif isinstance(obj, bytes):
+        n = len(obj)
+        out.append(struct.pack(">BB", 0xC4, n) if n < 1 << 8 else
+                   struct.pack(">BH", 0xC5, n) if n < 1 << 16 else
+                   struct.pack(">BI", 0xC6, n))
+        out.append(obj)
+    elif isinstance(obj, (np.ndarray, np.generic)):
+        arr = np.asarray(obj)   # a 0-d array for a scalar
+        inner: list = []
+        _pack([list(arr.shape), arr.dtype.name, arr.tobytes("C")], inner)
+        payload = b"".join(inner)
+        code = _EXT_NDARRAY if isinstance(obj, np.ndarray) else _EXT_NPSCALAR
+        n = len(payload)
+        fix = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        out.append(struct.pack(">Bb", fix[n], code) if n in fix else
+                   struct.pack(">BBb", 0xC7, n, code) if n < 1 << 8 else
+                   struct.pack(">BHb", 0xC8, n, code) if n < 1 << 16 else
+                   struct.pack(">BIb", 0xC9, n, code))
+        out.append(payload)
+    elif isinstance(obj, dict):
+        n = len(obj)
+        out.append(bytes([0x80 | n]) if n < 16 else
+                   struct.pack(">BH", 0xDE, n) if n < 1 << 16 else
+                   struct.pack(">BI", 0xDF, n))
+        for key in sorted(obj):   # flax's order
+            _pack(key, out)
+            _pack(obj[key], out)
+    elif isinstance(obj, (list, tuple)):
+        n = len(obj)
+        out.append(bytes([0x90 | n]) if n < 16 else
+                   struct.pack(">BH", 0xDC, n) if n < 1 << 16 else
+                   struct.pack(">BI", 0xDD, n))
+        for value in obj:
+            _pack(value, out)
+    else:
+        raise TypeError(f"cannot msgpack {type(obj).__name__}")
+
+
+def _pack_int(v: int) -> bytes:
+    if 0 <= v < 0x80:
+        return bytes([v])
+    if -32 <= v < 0:
+        return bytes([v & 0xFF])
+    if v >= 0:
+        for fmt, code, top in ((">BB", 0xCC, 1 << 8), (">BH", 0xCD, 1 << 16),
+                               (">BI", 0xCE, 1 << 32),
+                               (">BQ", 0xCF, 1 << 64)):
+            if v < top:
+                return struct.pack(fmt, code, v)
+    for fmt, code, bits in ((">Bb", 0xD0, 7), (">Bh", 0xD1, 15),
+                            (">Bi", 0xD2, 31), (">Bq", 0xD3, 63)):
+        if v >= -(1 << bits):
+            return struct.pack(fmt, code, v)
+    raise OverflowError(v)
+
+
+def msgpack_serialize(tree: Any) -> bytes:
+    """Encode nested dicts of arrays as flax's ``msgpack_serialize`` does."""
+    out: list = []
+    _pack(tree, out)
+    return b"".join(out)
+
+
+def _write(path: str, payload: Dict[str, Any]):
+    """Write under a temporary name, then publish with ``os.replace``: a
+    run killed mid-write leaves the previous file whole."""
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "wb") as f:
+        f.write(msgpack_serialize(payload))
+    os.replace(tmp, path)
+
+
+def checkpoint_meta(atom_features: str = "cgcnn", **extra) -> Dict[str, Any]:
+    """Checkpoint metadata: the feature table's provenance, plus extras."""
+    meta = {"feature_table": feature_table_provenance(atom_features)}
+    meta.update(extra)
+    return meta
+
+
+def save_params(path: str, params: Dict, batch_stats: Optional[Dict] = None,
+                meta: Optional[Dict[str, Any]] = None):
+    """Weights checkpoint in the JAX package's layout; `params` and
+    `batch_stats` are flax trees (:func:`~alignn_tpu_torch.nn.convert.
+    flax_from_module` gives them for a model)."""
+    payload: Dict[str, Any] = {"params": params}
+    if batch_stats:
+        payload["batch_stats"] = batch_stats
+    if meta:
+        payload["meta"] = meta
+    _write(path, payload)
+
+
 def load_params_with_meta(path: str) -> Tuple[Dict, Dict, Dict[str, Any]]:
     """(params, batch_stats, meta) of a weights checkpoint."""
     with open(path, "rb") as f:
         payload = msgpack_restore(f.read())
     return (payload["params"], payload.get("batch_stats", {}),
             payload.get("meta") or {})
+
+
+def _optimizer_to_tree(sd: Dict[str, Any]) -> Dict[str, Any]:
+    """A torch optimizer state dict with str keys and numpy leaves."""
+    def conv(v):
+        if isinstance(v, torch.Tensor):
+            return v.detach().cpu().numpy()
+        if isinstance(v, dict):
+            return {str(k): conv(x) for k, x in v.items()}
+        if isinstance(v, (list, tuple)):
+            return [conv(x) for x in v]
+        return v
+
+    return conv(sd)
+
+
+def _optimizer_from_tree(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`_optimizer_to_tree` (int state keys, tensors,
+    tuple ``betas``)."""
+    state = {int(k): {n: torch.from_numpy(np.array(v))
+                      if isinstance(v, np.ndarray) else v
+                      for n, v in entry.items()}
+             for k, entry in tree["state"].items()}
+    groups = [{k: tuple(v) if k == "betas" else v for k, v in g.items()}
+              for g in tree["param_groups"]]
+    return {"state": state, "param_groups": groups}
+
+
+def save_train_state(path: str, state, epoch: int,
+                     extra: Optional[Dict[str, Any]] = None):
+    """The whole training state (``restart.mpk``): the model's params and
+    BatchNorm buffers, the optimizer's state, the step, the epoch and
+    `extra`."""
+    params, stats = flax_from_module(state.model)
+    _write(path, {
+        "params": params, "batch_stats": stats,
+        "opt_state": _optimizer_to_tree(state.optimizer.state_dict()),
+        "step": int(state.step), "epoch": int(epoch), "extra": extra or {}})
+
+
+def load_train_state(path: str, state, with_extra: bool = False):
+    """Restore :func:`save_train_state`'s file into `state` (its model and
+    optimizer, in place); returns (state, epoch) or (state, epoch,
+    extra)."""
+    with open(path, "rb") as f:
+        payload = msgpack_restore(f.read())
+    state.model.load_state_dict(state_dict_from_flax(
+        payload["params"], batch_stats=payload["batch_stats"]))
+    state.optimizer.load_state_dict(
+        _optimizer_from_tree(payload["opt_state"]))
+    state.step = int(payload["step"])
+    epoch = int(payload.get("epoch", 0))
+    if with_extra:
+        return state, epoch, payload.get("extra", {})
+    return state, epoch
 
 
 def check_feature_table(meta: Optional[Dict[str, Any]],

@@ -1,12 +1,16 @@
 """Train state and the train/eval step factories.
 
-Counterpart of ``alignn_tpu/train/state.py``.  One training step is the
-force-field forward with ``create_graph=True`` (the forces are -dE/dr, so
-the loss differentiates through that gradient), the weighted loss, one
-backward and one optimizer update.  PyTorch runs eagerly, so there is no
-jit and no donation; the data-parallel step (``axis_name``) comes with
-DDP.  The losses come back as tensors on the batch's device: nothing in
-a step copies to the host or waits for the device.
+Counterpart of ``alignn_tpu/train/state.py``.  One training step of the
+force field is its forward with ``create_graph=True`` (the forces are
+-dE/dr, so the loss differentiates through that gradient), the weighted
+loss, one backward and one optimizer update.  One step of the property
+model (``ALIGNN``) runs its forward in train mode, which moves the
+BatchNorm running statistics once, then ``property_loss`` (NLL over the
+log-probabilities for a classifier); its eval step runs in eval
+mode.  PyTorch runs eagerly, so there is no jit and no donation; the
+data-parallel step (``axis_name``) comes with DDP.  The losses come back
+as tensors on the batch's device: nothing in a step copies to the host
+or waits for the device.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import torch
 from torch import nn
 
 from alignn_tpu_torch.graph.batch import GraphBatch
+from alignn_tpu_torch.nn.layers import MaskedBatchNorm
 from alignn_tpu_torch.nn.models import ALIGNNAtomWise, atomwise_forward
 from alignn_tpu_torch.train.losses import atomwise_loss, property_loss
 from alignn_tpu_torch.train.optim import OptimizerSpec, set_lr
@@ -25,11 +30,19 @@ from alignn_tpu_torch.train.optim import OptimizerSpec, set_lr
 
 @dataclass
 class TrainState:
-    """The step count, the model (its parameters) and its optimizer."""
+    """The step count, the model (its parameters and BatchNorm buffers)
+    and its optimizer."""
 
     step: int
     model: nn.Module
     optimizer: torch.optim.Optimizer
+
+    @property
+    def batch_stats(self) -> Dict[str, torch.Tensor]:
+        """The BatchNorm running statistics ({} for a LayerNorm model)."""
+        return {f"{name}.{key}": getattr(m, key)
+                for name, m in self.model.named_modules()
+                if isinstance(m, MaskedBatchNorm) for key in ("mean", "var")}
 
     def set_lr(self, lr: float) -> "TrainState":
         """Write the learning rate (host side, per epoch)."""
@@ -43,13 +56,9 @@ def create_train_state(model: nn.Module, sample_batch: GraphBatch,
 
     The port's modules are initialised when they are built (from a
     ``torch.Generator`` or a carried-over state dict), so unlike the JAX
-    function this draws nothing.  A model with BatchNorm statistics
-    raises: the port has no BatchNorm yet.
+    function this draws nothing; BatchNorm statistics live in the model's
+    buffers.
     """
-    if any(isinstance(m, nn.modules.batchnorm._NormBase)
-           for m in model.modules()):
-        raise NotImplementedError("BatchNorm statistics (batch_stats) are "
-                                  "not ported yet")
     model.to(sample_batch.r.device)
     return TrainState(step=0, model=model, optimizer=tx.init(model))
 

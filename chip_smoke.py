@@ -87,6 +87,28 @@ Phases:
    ``nvt_langevin`` run; ``relax_device`` runs ``batch_relax`` on 8
    rattled si64 cells, captured against eager.
 
+11. folder training through the CLIs (``train_cli``): ``cli.train`` on
+   a folder of 640 rattled rocksalt POSCARs (the draws of
+   ``rocksalt_graphs``) with the ALIGNN property model at full width
+   (4+4/256, BatchNorm), batch 64, 512/64/64 cells, 3 epochs, graph cache
+   and 2 graph workers: the artifact set, finite losses, K1/K2 launched
+   and no other kernel; ``cli.predict`` on the 64 test structures from
+   the last weights against ``Test_results.json`` (1e-5); the run again
+   from a copy of its graph cache (every split a cache hit; every graph
+   then read back once, bytes fetched and unpacked, timed), dense for one
+   epoch (K3/K4/K5a, no K1) and dense with ``ALIGNN_TPU_FUSED_LSTAGE=1``
+   (still K4, no K6/K7); then ``docs/mlearn_r4/Si``'s config for one
+   epoch on 40 si64 cells (rattled 0.05 A, seeds 0-39) labelled by that
+   potential.  In each run the trainer's own train step is tapped: its
+   first step's launches (the per-step counts) and its loss and gradients,
+   held against the same step on the port on the CPU (float32; float64
+   for the FF run) from the same weights and batch (loss 1e-4 relative,
+   gradients 1e-3 x max|grad| + 1e-7, a bias feeding a BatchNorm at the
+   model's scale); after the run
+   the trainer's step is replayed once timed and once profiled.  Each
+   run: seconds per epoch, ms per step, the trainer's edges/s,
+   graph-stage seconds, cache hits, peak memory.
+
 K3 is also launched twice at both dense shapes (bit-identical), with its
 fully masked (padded) nodes exactly 0 and one fill of its output timed
 beside it; every dense kernel's entry carries its share of the bound.
@@ -99,6 +121,7 @@ device is present.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import subprocess
@@ -2164,6 +2187,427 @@ def relax_device_phase(env_calc, failures: list) -> dict:
     return out
 
 
+TRAIN_CLI_DIR = os.path.join(REPO, "build", "train_cli")
+TRAIN_CLI_CELLS = 640
+PROPERTY_RUN = {  # TrainingConfig of train_cli (a): ALIGNNConfig defaults
+    "batch_size": 64, "n_train": 512, "n_val": 64, "n_test": 64,
+    "epochs": 3, "learning_rate": 1e-3, "use_cache": True,
+    "num_workers": 2, "model": {"name": "alignn"}}
+ARTIFACTS = ("config.json", "history_train.json", "history_val.json",
+             "ids_train_val_test.json", "Test_results.json",
+             "best_model.mpk", "current_model.mpk", "last_model.mpk",
+             "restart.mpk", "prediction_results_test_set.csv")
+# kernels each training run must launch, and must not (over the whole run)
+CLI_KERNELS = {"sparse": (("K1", "K2"), ("K3", "K4", "K5a", "K5b", "K6",
+                                         "K7", "K8")),
+               "dense": (("K3", "K4", "K5a"), ("K1", "K6", "K7", "K8")),
+               "dense_fused_switch": (("K3", "K4", "K5a"),
+                                      ("K1", "K6", "K7", "K8")),
+               "ff_si": (("K1", "K2"), ("K3", "K4", "K5a", "K5b", "K6",
+                                        "K7", "K8"))}
+BN_FED_BIASES = ("linear.bias", "src_update.bias")
+
+
+def write_rocksalt_folder(root: str, n: int) -> None:
+    """n POSCARs and id_prop.csv: the cells and targets of
+    ``graph.build.rocksalt_cells(n)`` (seed 0, rattle 0.02), the draws of
+    ``rocksalt_graphs``."""
+    from alignn_tpu_torch.graph.build import rocksalt_cells
+
+    os.makedirs(root, exist_ok=True)
+    rows = []
+    for i, (atoms, target, _forces) in enumerate(rocksalt_cells(n)):
+        name = f"POSCAR-{i:04d}.vasp"
+        with open(os.path.join(root, name), "w") as f:
+            f.write(atoms.to_poscar())
+        rows.append(f"{name},{target!r}")
+    with open(os.path.join(root, "id_prop.csv"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+
+
+def write_ff_folder(root: str, calc) -> None:
+    """40 si64 cells (diamond 2x2x2, rattled 0.05 A, seeds 0-39) in
+    id_prop.json, labelled by `calc` (docs/mlearn_r4/Si): energy per atom
+    as total_energy, forces, Voigt stresses."""
+    from alignn_tpu_torch.chem.atoms import Atoms
+
+    os.makedirs(root, exist_ok=True)
+    sc = diamond().make_supercell([2, 2, 2])
+    entries = []
+    for seed in range(40):
+        cart = sc.cart_coords + np.random.default_rng(seed).normal(
+            0.0, 0.05, sc.cart_coords.shape)
+        atoms = Atoms(lattice_mat=sc.lattice_mat,
+                      frac_coords=cart @ np.linalg.inv(sc.lattice_mat),
+                      elements=sc.elements)
+        res = calc.calculate(atoms)
+        entries.append({"jid": f"si64_{seed}", "atoms": atoms.to_dict(),
+                        "total_energy": res["energy"] / atoms.num_atoms,
+                        "forces": np.asarray(res["forces"]).tolist(),
+                        "stresses": np.asarray(res["stress"]).tolist()})
+    with open(os.path.join(root, "id_prop.json"), "w") as f:
+        json.dump(entries, f)
+
+
+def write_json(path: str, obj) -> str:
+    with open(path, "w") as f:
+        json.dump(obj, f)
+    return path
+
+
+def moved(obj, device, dtype=None):
+    """A GraphBatch (or any tree of dataclasses) with its tensors on
+    `device`, its floating tensors in `dtype` if one is given."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        if dtype is not None and obj.is_floating_point():
+            return obj.to(device, dtype)
+        return obj.to(device)
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: moved(getattr(obj, f.name), device, dtype)
+            for f in dataclasses.fields(obj) if f.init})
+    return obj
+
+
+class StepTap:
+    """Taps the train step that ``train.trainer`` makes, for one run of
+    ``cli.train`` inside the ``with``: at the trainer's first step the
+    weights and the batch (copied to the host) and the launches of that
+    step; after it its loss and gradients; at every step the batch, so
+    that :meth:`replay` can run the trainer's own step again after the
+    run.  The copies add to the first epoch's seconds."""
+
+    def __enter__(self):
+        from alignn_tpu_torch.train import trainer
+
+        self._trainer, self._make = trainer, trainer.make_train_step
+        self.first = None
+        trainer.make_train_step = self._wrap
+        return self
+
+    def __exit__(self, *exc):
+        self._trainer.make_train_step = self._make
+
+    def _wrap(self, model, **kw):
+        import torch
+
+        step = self._make(model, **kw)
+        self.model, self.kw, self.step = model, kw, step
+
+        def tapped(state, batch):
+            self.batch = batch
+            if self.first is not None:
+                return step(state, batch)
+            weights = {k: v.detach().cpu().clone()
+                       for k, v in model.state_dict().items()}
+            host_batch = moved(batch, torch.device("cpu"))
+            before = read_launches()
+            state, losses = step(state, batch)
+            after = read_launches()
+            self.first = {
+                "launches": {k: after[k] - before[k] for k in after},
+                "weights": weights, "batch": host_batch,
+                "loss": float(losses["loss"]),
+                "grads": {k: p.grad.detach().cpu()
+                          for k, p in model.named_parameters()}}
+            return state, losses
+
+        return tapped
+
+    def replay(self, state) -> dict:
+        """The trainer's step on its final state and last batch: one step
+        timed on the host's clock, one more profiled."""
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        self.step(state, self.batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            self.step(state, self.batch)
+            torch.cuda.synchronize()
+        by_name, n_ops = device_ms_by_name(prof)
+        busy = sum(by_name.values())
+        b = self.batch
+        return {"bucket": [b.z.shape[0], b.r.shape[0], b.lg_mask.shape[0],
+                           b.dense_D],
+                "step_ms": wall_ms, "device_busy_ms": busy,
+                "device_busy_share": busy / wall_ms,
+                "device_ops_per_step": n_ops,
+                "top_kernels_ms": top_kernels(by_name)}
+
+    def hold_against_cpu(self, out: str, label: str, failures: list,
+                         dtype: str = "float32") -> dict:
+        """The trainer's first step again on the port on the CPU in
+        `dtype`, from the same weights and batch: loss within 1e-4
+        relative, each gradient within 1e-3 x its max|grad| + 1e-7 (a bias
+        feeding a BatchNorm, whose exact gradient is 0, at the model's
+        largest gradient).
+
+        The FF run is held against float64: two float32 steps differ by
+        the sum of their roundings, and there the first layers' gradients
+        (max|grad| under 1e-6) are what is left after cancellations, so
+        that a float32 step on the CPU alone lands most of the limit away
+        from the exact value.
+        """
+        import torch
+
+        from alignn_tpu_torch.config import TrainingConfig
+        from alignn_tpu_torch.nn.layers import MaskedBatchNorm
+        from alignn_tpu_torch.train.optim import build_optimizer
+        from alignn_tpu_torch.train.state import (create_train_state,
+                                                  make_train_step)
+        from alignn_tpu_torch.train.trainer import build_model
+
+        cfg = TrainingConfig.from_json(os.path.join(out, "config.json"))
+        model = build_model(cfg.model)
+        model.load_state_dict(self.first["weights"])
+        batch = self.first["batch"]
+        if dtype != "float32":    # as the card ran it, else all in dtype
+            model.to(getattr(torch, dtype))
+            batch = moved(batch, torch.device("cpu"), getattr(torch, dtype))
+        state = create_train_state(model, batch, build_optimizer(
+            cfg.optimizer, cfg.learning_rate, cfg.weight_decay, model=model))
+        t = time.perf_counter()
+        _s, losses = make_train_step(model, **self.kw)(state, batch)
+        cpu_s = time.perf_counter() - t
+        ref_loss, card = float(losses["loss"]), self.first
+        ref = {k: p.grad.detach() for k, p in model.named_parameters()}
+        top = max(float(g.abs().max()) for g in ref.values())
+        batchnorm = any(isinstance(m, MaskedBatchNorm)
+                        for m in model.modules())
+        worst, worst_name = 0.0, ""
+        for name, g in ref.items():
+            diff = float((card["grads"][name].double() - g).abs().max())
+            # rounding noise on an exact 0, held to the model's scale
+            scale = top if batchnorm and name.endswith(BN_FED_BIASES) else \
+                float(g.abs().max())
+            ratio = diff / (TRAIN_TOL["grad_rel"] * scale
+                            + TRAIN_TOL["grad_abs"])
+            if ratio > worst:
+                worst, worst_name = ratio, name
+        row = {"cpu_dtype": dtype, "cpu_step_s": cpu_s,
+               "first_loss": card["loss"],
+               "card_vs_cpu_loss_rel": abs(card["loss"] - ref_loss)
+               / abs(ref_loss),
+               "grad_worst_share_of_limit": worst, "grad_worst": worst_name}
+        if not row["card_vs_cpu_loss_rel"] <= TRAIN_TOL["loss_rel"]:
+            failures.append(f"train_cli {label} first step: loss "
+                            f"{card['loss']} on the card vs {ref_loss} on "
+                            f"the CPU ({dtype})")
+        if not worst <= 1.0:
+            failures.append(f"train_cli {label} first step: gradient of "
+                            f"{worst_name} at {worst} x its limit (card vs "
+                            f"CPU {dtype})")
+        return row
+
+
+def cli_train(label: str, root: str, config: str, out: str, failures: list,
+              cache_from: str = None, extra=(), cpu_dtype="float32") -> dict:
+    """``cli.train.main`` on the card into `out` (a copy of `cache_from`'s
+    graph cache seeded there first, if given), launches counted from 0
+    over the run and over its first train step; then the trainer's step
+    replayed (timed, profiled) and its first step held against the CPU
+    port."""
+    import shutil
+
+    import torch
+
+    from alignn_tpu_torch.cli import train as cli_train_mod
+
+    shutil.rmtree(out, ignore_errors=True)
+    if cache_from is not None:
+        shutil.copytree(os.path.join(cache_from, "graph_cache"),
+                        os.path.join(out, "graph_cache"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t = time.perf_counter()
+    with StepTap() as tap:
+        summary = cli_train_mod.main(["--root_dir", root, "--config_name",
+                                      config, "--output_dir", out, *extra])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    steps = summary["steps_per_epoch"]
+    losses = [v for name in ("history_train.json", "history_val.json")
+              for row in json.load(open(os.path.join(out, name)))
+              for v in row]
+    missing = [a for a in ARTIFACTS if not os.path.exists(
+        os.path.join(out, a))]
+    if missing:
+        failures.append(f"train_cli {label}: artifacts missing: {missing}")
+    if not (np.isfinite(losses).all() and all(
+            np.isfinite(x).all() for x in summary["step_losses"])):
+        failures.append(f"train_cli {label}: a loss is not finite")
+    need, banned = CLI_KERNELS[label]
+    per_step = tap.first["launches"]
+    for counts, what in ((launches, "the run"), (per_step, "its first step")):
+        if any(counts[k] <= 0 for k in need) or \
+                any(counts[k] != 0 for k in banned):
+            failures.append(f"train_cli {label}: launches over {what} "
+                            f"{counts} (need {need}, none of {banned})")
+    row = {"run": label, "seconds": seconds,
+           "epochs": summary["epochs_run"], "steps_per_epoch": steps,
+           "seconds_per_epoch": summary["epoch_s"],
+           "ms_per_train_step": [1e3 * e / steps
+                                 for e in summary["epoch_s"]],
+           "trainer_edges_per_s": [summary["edges_per_batch"] * steps / e
+                                   for e in summary["epoch_s"]],
+           "graph_stage_s": summary["graph_stats"]["graph_s"],
+           "graph_cache_hits": summary["graph_stats"]["cached"],
+           "peak_memory_bytes": peak,
+           "launches_over_run": launches,
+           "launches_per_train_step": per_step,
+           "test_mae": summary.get("test_mae"),
+           "history_train": json.load(open(os.path.join(
+               out, "history_train.json")))}
+    if not abs(tap.first["loss"] - summary["step_losses"][0][0]) <= 0.0:
+        failures.append(f"train_cli {label}: the tapped first loss "
+                        f"{tap.first['loss']} is not the trainer's")
+    row["replayed_step"] = tap.replay(summary["state"])
+    del summary, tap.batch, tap.model, tap.step
+    torch.cuda.empty_cache()
+    row["first_step_vs_cpu"] = tap.hold_against_cpu(out, label, failures,
+                                                    cpu_dtype)
+    return row
+
+
+def cache_readback(cache_dir: str) -> dict:
+    """Every graph of every split read back once from the graph cache in
+    `cache_dir` (files just written and read, so in the page cache):
+    seconds to fetch the records' bytes, and to fetch and unpack them
+    (``GraphCache[i]``, what a cached loader does for each graph of each
+    batch, every epoch)."""
+    import glob
+
+    from alignn_tpu_torch.data.cache import GraphCache
+
+    caches = [GraphCache(p[:-len(".idx")])
+              for p in sorted(glob.glob(os.path.join(cache_dir, "*.idx")))]
+    t = time.perf_counter()
+    for c in caches:
+        for i in range(len(c)):
+            c.record(i)
+    fetch_s = time.perf_counter() - t
+    t = time.perf_counter()
+    for c in caches:
+        for i in range(len(c)):
+            c[i]
+    read_s = time.perf_counter() - t
+    return {"graphs": sum(len(c) for c in caches), "fetch_bytes_s": fetch_s,
+            "fetch_and_unpack_s": read_s, "fetch_share": fetch_s / read_s}
+
+
+def predict_check(out: str, root: str, failures: list) -> dict:
+    """``cli.predict`` on the test set's structures: from the run's last
+    weights (config.json and last_model.mpk copied aside) against
+    Test_results.json within 1e-5, and from the run's directory (its best
+    model) finite."""
+    import shutil
+
+    from alignn_tpu_torch.cli import predict as cli_predict
+
+    ids = json.load(open(os.path.join(out, "ids_train_val_test.json")))
+    test_dir, last_dir = out + "_test_set", out + "_last"
+    for d in (test_dir, last_dir):
+        shutil.rmtree(d, ignore_errors=True)
+        os.makedirs(d)
+    for sid in ids["id_test"]:
+        shutil.copy(os.path.join(root, sid), test_dir)
+    for name in ("config.json", "last_model.mpk"):
+        shutil.copy(os.path.join(out, name), last_dir)
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):   # a line a structure
+        rows = cli_predict.main(["--model_path", last_dir, "--file_path",
+                                 test_dir])
+        seconds = time.perf_counter() - t
+        best = cli_predict.main(["--model_path", out, "--file_path",
+                                 test_dir])
+    tests = {r["id"]: r["predictions"] for r in json.load(open(
+        os.path.join(out, "Test_results.json")))}
+    diff = max(float(np.abs(np.asarray(r["prediction"])
+                            - np.asarray(tests[os.path.basename(r["file"])]))
+                     .max()) for r in rows)
+    if not (len(rows) == len(tests) and diff <= 1e-5):
+        failures.append(f"train_cli predict: {len(rows)} predictions, "
+                        f"{diff} from Test_results.json")
+    if not np.isfinite([r["prediction"] for r in best]).all():
+        failures.append("train_cli predict: non-finite best-model output")
+    return {"structures": len(rows), "seconds": seconds,
+            "max_abs_diff_vs_test_results": diff}
+
+
+def train_cli_phase(failures: list) -> tuple:
+    """Folder training through ``cli.train`` on the card, then
+    ``cli.predict``: (a) the ALIGNN property model at full width (4+4/256,
+    BatchNorm), sparse, 3 epochs of 512 of 640 rocksalt cells; (d) the
+    same run again from a new output directory seeded with (a)'s graph
+    cache, one epoch, reading the cache; (b) dense, one epoch, then one
+    epoch with ALIGNN_TPU_FUSED_LSTAGE=1 (K4, never K6/K7); (c) the FF
+    config of docs/mlearn_r4/Si for one epoch on 40 si64 cells labelled by
+    that potential.  Every run's first train step is the one held against
+    the CPU port and counted per step.  Returns (rows, launches per
+    property train step by layout)."""
+    import shutil
+
+    import torch
+
+    from alignn_tpu_torch.ff.calculator import Calculator
+
+    shutil.rmtree(TRAIN_CLI_DIR, ignore_errors=True)
+    root = os.path.join(TRAIN_CLI_DIR, "rocksalt640")
+    write_rocksalt_folder(root, TRAIN_CLI_CELLS)
+    d = TRAIN_CLI_DIR
+    cfg_a = write_json(os.path.join(d, "property.json"), PROPERTY_RUN)
+    cfg_b = write_json(os.path.join(d, "property_dense.json"),
+                       {**PROPERTY_RUN, "epochs": 1,
+                        "dense_neighborhoods": True})
+    out_a = os.path.join(d, "out_sparse")
+    rows = {"a_sparse": cli_train("sparse", root, cfg_a, out_a, failures)}
+    rows["a_predict"] = predict_check(out_a, root, failures)
+    rows["d_cached"] = cli_train("sparse", root, cfg_a,
+                                 os.path.join(d, "out_cached"), failures,
+                                 cache_from=out_a, extra=("--epochs", "1"))
+    rows["d_cached"]["uncached_first_epoch_s"] = \
+        rows["a_sparse"]["seconds_per_epoch"][0]
+    rows["d_cached"]["cache_readback"] = cache_readback(
+        os.path.join(d, "out_cached", "graph_cache"))
+    if not all(rows["d_cached"]["graph_cache_hits"].values()) or \
+            any(rows["a_sparse"]["graph_cache_hits"].values()):
+        failures.append(f"train_cli: cache hits "
+                        f"{rows['a_sparse']['graph_cache_hits']} then "
+                        f"{rows['d_cached']['graph_cache_hits']}")
+    rows["b_dense"] = cli_train("dense", root, cfg_b,
+                                os.path.join(d, "out_dense"), failures,
+                                cache_from=out_a)
+    with switch_env(FUSED_ENV):
+        rows["b_dense_fused_switch"] = cli_train(
+            "dense_fused_switch", root, cfg_b,
+            os.path.join(d, "out_dense_fused"), failures, cache_from=out_a)
+    torch.cuda.empty_cache()
+    ff_root = os.path.join(d, "si64_40")
+    write_ff_folder(ff_root, Calculator(path=MODEL_DIR))
+    with open(os.path.join(MODEL_DIR, "config.json")) as f:
+        ff_cfg = {**json.load(f), "epochs": 1, "n_train": 32, "n_val": 4,
+                  "n_test": 4}
+    rows["c_ff_si"] = cli_train(
+        "ff_si", ff_root, write_json(os.path.join(d, "ff_si.json"), ff_cfg),
+        os.path.join(d, "out_ff"), failures, cpu_dtype="float64")
+    torch.cuda.empty_cache()
+    per_step = {"sparse": rows["a_sparse"]["launches_per_train_step"],
+                "dense": rows["b_dense"]["launches_per_train_step"]}
+    return rows, per_step
+
+
 KERNELS = (  # id, name, source, replaces
     ("K1", "eggc_gated_aggregate", "alignn_tpu_torch/csrc/eggc.cu",
      "alignn_tpu/ops/pallas_eggc.py:45"),
@@ -2378,6 +2822,16 @@ def main() -> int:
     md = md_device_phase(env_calc, knn_calc, failures)
     emit({"phase": "md_device", **md})
     emit({"phase": "relax_device", **relax_device_phase(env_calc, failures)})
+    del env_calc, cu_calc, knn_calc
+    torch.cuda.empty_cache()
+
+    # folder training through the CLIs: counts from 0 over each run
+    t = time.perf_counter()
+    cli_rows, property_launches = train_cli_phase(failures)
+    for name, row in cli_rows.items():
+        emit({"phase": "train_cli", "part": name, **row})
+    emit({"phase": "train_cli", "part": "total",
+          "seconds": time.perf_counter() - t})
 
     line = []
     for key, name, source, replaces in KERNELS:
@@ -2412,6 +2866,9 @@ def main() -> int:
             "launches_per_train_step": {
                 layout: per_step[key]
                 for layout, per_step in train_launches.items()},
+            "launches_per_property_train_step": {
+                layout: per_step[key]
+                for layout, per_step in property_launches.items()},
             "max_abs_err": f32["max_abs_err"], "rel_err": f32["rel_err"],
             "tol_rel": f32["tol_rel"],
             "ms": f32["ms"], "kernel_ms": f32["ms"],

@@ -1,11 +1,12 @@
 """alignn_tpu_torch on the card: CUDA kernels against their plain versions.
 
 K1/K2 (``csrc/eggc.cu``, K2 also on the envelope models' soft-weight
-sums), K3/K4/K5a/K5b (``csrc/dense.cu``, K3 and K5a/K5b also across
-their splits, K5a/K5b with their occupancy and the sigmoid's bit-exact
+sums), K3/K4/K5a/K5b (``csrc/dense.cu``, K5a/K5b also across their
+slab and two-pass paths, with their occupancy and the sigmoid's bit-exact
 select) and K6/K7 (``csrc/fused_lstage.cu``), then the
 Calculator and the E/F/S train step on the card against the port on the
-CPU, sparse, envelope-weighted, dense and fused dense; then the on-device
+CPU, sparse, envelope-weighted, dense and fused dense; the property
+model's masked BatchNorm and its train step likewise; then the on-device
 MD and FIRE loops captured as CUDA graphs against the same loops run
 eagerly, and one captured graph across two chunks whose segments need
 different work-item counts.
@@ -367,8 +368,8 @@ def _k3_operands(rng, n, D, f, dtype, layout, device):
 def test_dense_gated_aggregate_matches_plain(cuda, n, D, f, dtype, layout):
     """K3 against its plain version (f32 1e-5, bf16 1e-2, times
     max|plain|), its fully masked node exactly 0, every output finite, and
-    a second launch bit-identical (the split's partial sums meet in a
-    fixed order)."""
+    a second launch bit-identical (one thread walks a node's rows in
+    order)."""
     m, bh = _k3_operands(np.random.default_rng(10), n, D, f, dtype, layout,
                          cuda)
     before = dk.dense_gated_aggregate_cuda.launches
@@ -550,6 +551,95 @@ def test_train_step_cuda_matches_cpu(cuda, dense):
     for name, ref in gc.items():
         diff = float((gg[name] - ref).abs().max())
         assert diff <= 1e-3 * float(ref.abs().max()) + 1e-7, (name, diff)
+
+
+def test_masked_batchnorm_cuda_matches_cpu(cuda):
+    """MaskedBatchNorm on the card against the CPU, train mode (padded
+    rows in the input) then eval mode: outputs of the real rows and the
+    running statistics within 1e-6 x their scale."""
+    from alignn_tpu_torch.nn.layers import MaskedBatchNorm
+
+    rng = np.random.default_rng(21)
+    x = rng.standard_normal((300, 64)).astype(np.float32) * 3 + 1
+    mask = (rng.random(300) < 0.9).astype(np.float32)
+    x[mask == 0] = 1e4
+    scale, shift = rng.standard_normal(64), rng.standard_normal(64)
+    outs = {}
+    for dev in (torch.device("cpu"), cuda):
+        bn = MaskedBatchNorm(64).to(dev)
+        with torch.no_grad():
+            bn.weight.copy_(torch.tensor(scale))
+            bn.bias.copy_(torch.tensor(shift))
+        xt, mt = torch.tensor(x, device=dev), torch.tensor(mask, device=dev)
+        bn.train()
+        y_train = bn(xt, mt)
+        bn.eval()
+        y_eval = bn(xt, mt)
+        outs[dev.type] = [t.detach().cpu().numpy() for t in
+                          (y_train, y_eval, bn.mean, bn.var)]
+    real = mask > 0
+    for got, ref in zip(outs["cuda"], outs["cpu"]):
+        if got.ndim == 2:
+            got, ref = got[real], ref[real]
+        np.testing.assert_allclose(got, ref, rtol=0,
+                                   atol=1e-6 * max(np.abs(ref).max(), 1.0))
+
+
+@pytest.mark.parametrize("dense", [True, False], ids=["dense", "sparse"])
+def test_property_train_step_cuda_matches_cpu(cuda, dense):
+    """One AdamW step of the ALIGNN property model (BatchNorm, 1+1/128) on
+    4 cells, card against CPU from the same seeded weights: loss to rtol
+    1e-4, every gradient within 1e-3 x its max|grad| + 1e-7 (the biases
+    feeding a BatchNorm, whose gradient is 0 in exact arithmetic, within
+    1e-3 x the model's largest gradient + 1e-7), the running statistics
+    within 1e-5.  Sparse launches K1, dense K3/K4/K5a and no K1."""
+    from alignn_tpu_torch.graph.batch import BucketSpec, batch_graphs
+    from alignn_tpu_torch.graph.build import rocksalt_graphs
+    from alignn_tpu_torch.graph.dense import (dense_batch_graphs,
+                                              dense_spec_for_batch)
+    from alignn_tpu_torch.nn.models import ALIGNN, ALIGNNConfig, \
+        init_parameters
+    from alignn_tpu_torch.train.optim import build_optimizer
+    from alignn_tpu_torch.train.state import (create_train_state,
+                                              make_train_step)
+
+    graphs = rocksalt_graphs(4)
+    cfg = ALIGNNConfig(alignn_layers=1, gcn_layers=1, hidden_features=128,
+                       embedding_features=32)
+    counters = (ek.gated_aggregate_cuda, dk.dense_gated_aggregate_cuda,
+                dk.dense_pair_aggregate_cuda, dk.pair_aggregate_bwd_cuda)
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        batch = (dense_batch_graphs(graphs, dense_spec_for_batch(graphs), dev)
+                 if dense else batch_graphs(
+                     graphs, BucketSpec.tight_for_batch(graphs), dev))
+        model = init_parameters(ALIGNN(cfg), torch.Generator().manual_seed(0))
+        state = create_train_state(model, batch,
+                                   build_optimizer("adamw", 1e-3, 1e-5,
+                                                   model=model))
+        before = [c.launches for c in counters]
+        _state, losses = make_train_step(model, "l1")(state, batch)
+        launches = [c.launches - b for c, b in zip(counters, before)]
+        out[dev.type] = (float(losses["loss"]),
+                         {n: p.grad.cpu() for n, p in
+                          model.named_parameters()},
+                         {k: t.cpu() for k, t in state.batch_stats.items()},
+                         launches)
+    (lc, gc, sc, _), (lg, gg, sg, launches) = out["cpu"], out["cuda"]
+    if dense:
+        assert launches[0] == 0 and min(launches[1:]) > 0, launches
+    else:
+        assert launches[0] > 0 and max(launches[1:]) == 0, launches
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    top = max(float(g.abs().max()) for g in gc.values())
+    for name, ref in gc.items():
+        if name.endswith(("linear.bias", "src_update.bias")):
+            assert float(gg[name].abs().max()) <= 1e-3 * top + 1e-7, name
+            continue
+        diff = float((gg[name] - ref).abs().max())
+        assert diff <= 1e-3 * float(ref.abs().max()) + 1e-7, (name, diff)
+    for name, ref in sc.items():
+        assert float((sg[name] - ref).abs().max()) <= 1e-5, name
 
 
 FUSED_CASES = [  # (nodes, D, F, dtype, strided input)

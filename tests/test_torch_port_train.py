@@ -542,7 +542,8 @@ def test_dense_and_sparse_steps_agree(trajectories):
 
 def test_eval_step_and_state(trajectories, jax_small):
     """make_eval_step gives the step's losses without touching a
-    gradient; the state refuses another model; a BatchNorm model raises."""
+    gradient; the state refuses another model; a BatchNorm model's running
+    statistics are the state's ``batch_stats``."""
     from alignn_tpu_torch.graph.dense import (dense_batch_graphs,
                                               dense_spec_for_batch)
     from alignn_tpu_torch.train.optim import build_optimizer
@@ -567,6 +568,14 @@ def test_eval_step_and_state(trajectories, jax_small):
     assert all(g["lr"] == 5e-4 for g in state.optimizer.param_groups)
     with pytest.raises(ValueError, match="another model"):
         make_train_step(_port_model(params))(state, batch)
-    with pytest.raises(NotImplementedError, match="BatchNorm"):
-        create_train_state(torch.nn.Sequential(torch.nn.BatchNorm1d(4)),
-                           batch, build_optimizer())
+    # BatchNorm statistics live in the model's buffers: the state shows
+    # a property model's and none of a LayerNorm model
+    from alignn_tpu_torch.nn.models import ALIGNN, ALIGNNConfig
+
+    assert state.batch_stats == {}
+    bn_state = create_train_state(
+        ALIGNN(ALIGNNConfig(alignn_layers=1, gcn_layers=1,
+                            hidden_features=16, embedding_features=8)),
+        batch, build_optimizer())
+    assert bn_state.batch_stats and all(
+        k.endswith((".mean", ".var")) for k in bn_state.batch_stats)
