@@ -52,10 +52,11 @@ def train_for_folder(
     if devices > 1:
         raise NotImplementedError(
             "--devices > 1 (data parallelism) is not ported yet "
-            "(ROADMAP.md §1 item 7)")
+            '(ROADMAP.md §1 "Multi-GPU")')
     if profile:
         raise NotImplementedError(
-            "--profile is not ported yet (ROADMAP.md §1 item 8)")
+            '--profile is not ported yet (ROADMAP.md §1 "Remaining '
+            'modules")')
     if not os.path.exists(config_name):
         raise FileNotFoundError(
             f"config file not found: {config_name} "
@@ -124,6 +125,7 @@ def train_for_folder(
         target_width=getattr(config.model, "output_features", 1),
         atomwise_width=getattr(m, "atomwise_output_features", 0),
         additional_width=getattr(m, "additional_output_features", 0),
+        extra_width=getattr(m, "extra_features", 0),
         bucket_slack=config.bucket_slack,
         dense=config.dense_neighborhoods,
         cache_dir=(os.path.join(config.output_dir, "graph_cache")

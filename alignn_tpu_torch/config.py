@@ -6,7 +6,8 @@ only the fields still at their default (an explicit value in the config
 file wins over a stale shell variable).
 
 The model sub-config is a tagged union on ``name``: ``alignn`` (the
-property model, BatchNorm) and ``alignn_atomwise`` (the force field).
+property model, BatchNorm), ``alignn_atomwise`` (the force field) and
+``ealignn_atomwise`` (eALIGNN).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Union
 
 from alignn_tpu_torch.chem.features import FEATURESET_SIZE
+from alignn_tpu_torch.nn.ealignn import eALIGNNAtomWiseConfig
 from alignn_tpu_torch.nn.models import ALIGNNAtomWiseConfig, ALIGNNConfig
 
 
@@ -68,15 +70,13 @@ TARGET_ENUM = frozenset([
 ])
 
 MODEL_CONFIGS = {"alignn": ALIGNNConfig,
-                 "alignn_atomwise": ALIGNNAtomWiseConfig}
+                 "alignn_atomwise": ALIGNNAtomWiseConfig,
+                 "ealignn_atomwise": eALIGNNAtomWiseConfig}
 
 
 def model_config_from_dict(d: Dict[str, Any]):
     """Config dataclass for d['name'] (default alignn_atomwise)."""
     name = d.get("name", "alignn_atomwise")
-    if name == "ealignn_atomwise":
-        raise NotImplementedError(
-            "ealignn_atomwise is not ported yet (ROADMAP.md §1 item 6)")
     if name not in MODEL_CONFIGS:
         raise ValueError(f"unknown model name: {name}")
     return MODEL_CONFIGS[name].from_dict(d)
@@ -164,7 +164,8 @@ class TrainingConfig:
     per_species_energy_baseline: bool = False
     lg_cutoff: Optional[float] = None
     # model
-    model: Union[ALIGNNConfig, ALIGNNAtomWiseConfig, Any] = field(
+    model: Union[ALIGNNConfig, ALIGNNAtomWiseConfig, eALIGNNAtomWiseConfig,
+                 Any] = field(
         default_factory=lambda: ALIGNNAtomWiseConfig(name="alignn_atomwise"))
 
     def __post_init__(self):

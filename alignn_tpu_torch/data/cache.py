@@ -68,12 +68,8 @@ def unpack_graph(buf: bytes) -> GraphData:
         arrays[name] = np.frombuffer(buf, dtype=dtype, count=count,
                                      offset=off).reshape(shape).copy()
         off += count * dtype.itemsize
-    if "extra_features" in arrays:
-        raise NotImplementedError("extra_features are not ported yet: the "
-                                  "port's model refuses them")
     vol = float(arrays.pop("volume")[0])
-    return GraphData(volume=vol, **{k: arrays.get(k) for k in _FIELDS
-                                    if k != "extra_features"})
+    return GraphData(volume=vol, **{k: arrays.get(k) for k in _FIELDS})
 
 
 class GraphCacheWriter:

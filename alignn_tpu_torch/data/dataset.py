@@ -150,9 +150,6 @@ def filter_records(records: Sequence[Dict[str, Any]], target: str = "target",
 
 
 def _build_one(rec: Dict[str, Any], kwargs: Dict[str, Any]) -> GraphData:
-    if "extra_features" in rec:
-        raise NotImplementedError("extra_features are not ported yet: the "
-                                  "port's model refuses them")
     atoms = rec["atoms"]
     if not isinstance(atoms, Atoms):
         atoms = Atoms.from_dict(atoms)
@@ -172,6 +169,9 @@ def _build_one(rec: Dict[str, Any], kwargs: Dict[str, Any]) -> GraphData:
     if "additional" in rec:
         g.additional = np.asarray(rec["additional"],
                                   dtype=np.float64).reshape(-1)
+    if "extra_features" in rec:
+        g.extra_features = np.asarray(rec["extra_features"],
+                                      dtype=np.float64).reshape(-1)
     return g
 
 

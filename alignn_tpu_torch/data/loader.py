@@ -92,7 +92,8 @@ class BucketedLoader:
                  spec: Optional[BucketSpec] = None,
                  atom_features: str = "cgcnn",
                  target_width: int = 1, atomwise_width: int = 0,
-                 additional_width: int = 0, num_shards: int = 1,
+                 additional_width: int = 0, extra_width: int = 0,
+                 num_shards: int = 1,
                  seed: int = 123, bucket_slack: float = 1.0,
                  host_id: int = 0, num_hosts: int = 1,
                  prefetch: int = 2, dense: bool = False,
@@ -100,7 +101,8 @@ class BucketedLoader:
         if num_shards > 1:
             raise NotImplementedError(
                 "num_shards > 1 stacks per-device batches for data "
-                "parallelism, which waits for the DDP port")
+                'parallelism, which waits for the DDP port (ROADMAP.md §1 '
+                '"Multi-GPU")')
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -109,6 +111,7 @@ class BucketedLoader:
         self.target_width = target_width
         self.atomwise_width = atomwise_width
         self.additional_width = additional_width
+        self.extra_width = extra_width
         self.seed = seed
         self.prefetch = prefetch
         self.epoch = 0
@@ -174,7 +177,8 @@ class BucketedLoader:
         kw = dict(atom_features=self.atom_features,
                   target_width=self.target_width,
                   atomwise_width=self.atomwise_width,
-                  additional_width=self.additional_width)
+                  additional_width=self.additional_width,
+                  extra_width=self.extra_width)
         if self.spec is not None and self.spec.dense_D:
             try:
                 return dense_batch_graphs(graphs, self.spec, self.device,
@@ -342,6 +346,7 @@ def get_train_val_loaders(
     target_width: int = 1,
     atomwise_width: int = 0,
     additional_width: int = 0,
+    extra_width: int = 0,
     bucket_slack: float = 1.0,
     cache_dir: Optional[str] = None,
     dense: bool = False,
@@ -358,7 +363,7 @@ def get_train_val_loaders(
     if num_shards > 1:
         raise NotImplementedError(
             "num_shards > 1 (data parallelism) is not ported yet "
-            "(ROADMAP.md §1 item 7)")
+            '(ROADMAP.md §1 "Multi-GPU")')
     device = resolve_device(device)
     dat = filter_records(
         records, target=target,
@@ -432,7 +437,8 @@ def get_train_val_loaders(
 
     shared = dict(atom_features=atom_features, target_width=target_width,
                   atomwise_width=atomwise_width,
-                  additional_width=additional_width, seed=split_seed,
+                  additional_width=additional_width,
+                  extra_width=extra_width, seed=split_seed,
                   bucket_slack=bucket_slack, dense=dense, device=device)
     train_loader = BucketedLoader(train_ds, batch_size, shuffle=True,
                                   drop_last=True, **shared)

@@ -3,7 +3,8 @@
 - :class:`Calculator` — energy/forces/stress for an
   :class:`~alignn_tpu_torch.chem.atoms.Atoms` from a trained model, on
   ``cuda`` unless ``device="cpu"`` is passed, with a padded bucket reused
-  from call to call;
+  from call to call; :class:`iCalculator` adds a property model's
+  charges, magnetic moments and named properties;
 - :mod:`relax` — FIRE, L-BFGS, MDMin + cell relaxation (UnitCellFilter
   equivalent); :mod:`relax_jit` — batched FIRE on the device;
 - :mod:`md` — the host-loop ensembles; :mod:`md_jit` — on-device NVE /
@@ -19,8 +20,10 @@ The JAX package's ``default_path`` (a download of the default model) has
 no counterpart: a model directory is required.
 """
 
-from alignn_tpu_torch.ff.calculator import Calculator
+from alignn_tpu_torch.ff.calculator import (DEFAULT_IPROPS, Calculator,
+                                           iCalculator)
 from alignn_tpu_torch.ff.md import run_md
 from alignn_tpu_torch.ff.relax import fire_relax, lbfgs_relax, relax
 
-__all__ = ["Calculator", "fire_relax", "lbfgs_relax", "relax", "run_md"]
+__all__ = ["DEFAULT_IPROPS", "Calculator", "fire_relax", "iCalculator",
+           "lbfgs_relax", "relax", "run_md"]

@@ -3,8 +3,11 @@
 Counterpart of ``alignn_tpu/ff/calculator.py`` (``Calculator``):
 structure -> graph (k-NN or radius, with skin reuse for radius
 strategies) -> one-graph padded bucket, sparse or dense-neighbourhood
-(graph/dense.py) -> :func:`atomwise_forward` -> E/F/S.  Runs on ``cuda``
-unless ``device="cpu"`` is passed.
+(graph/dense.py) -> :func:`atomwise_forward` (or for eALIGNN
+:func:`~alignn_tpu_torch.nn.ealignn.ealignn_forward`) -> E/F/S.  Runs on
+``cuda`` unless ``device="cpu"`` is passed.  :class:`iCalculator` adds a
+second, property model's per-atom charges and magnetic moments and its
+named properties.
 
 ``dense`` (default: the config's ``dense_neighborhoods``) asks for the
 dense layout, routed as the JAX Calculator routes it: a graph with an
@@ -21,6 +24,7 @@ import dataclasses
 from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
 
 from alignn_tpu_torch import resolve_device
 from alignn_tpu_torch.chem.atoms import Atoms
@@ -28,6 +32,7 @@ from alignn_tpu_torch.graph import dense as gdense
 from alignn_tpu_torch.graph.batch import BucketSpec, GraphBatch, batch_graphs
 from alignn_tpu_torch.graph.build import (GraphData, build_graph,
                                           line_graph_edges, wrap_frac)
+from alignn_tpu_torch.nn.ealignn import eALIGNNAtomWise, ealignn_forward
 from alignn_tpu_torch.nn.models import EV_A3_TO_GPA, atomwise_forward
 
 
@@ -255,9 +260,15 @@ class Calculator:
 
     # -- calculation --------------------------------------------------------
 
+    def forward(self, batch: GraphBatch) -> Dict[str, torch.Tensor]:
+        """The model's E/F/S forward on a batch."""
+        if isinstance(self.model, eALIGNNAtomWise):
+            return ealignn_forward(self.model, batch)
+        return atomwise_forward(self.model, batch)
+
     def calculate(self, atoms: Atoms) -> Dict[str, Any]:
         batch = self.batch_for(self.graph_for(atoms))
-        res = atomwise_forward(self.model, batch)
+        res = self.forward(batch)
         out = res["out"].detach().cpu().numpy()
         grad = res["grad"].detach().cpu().numpy()
         stress = res["stresses"].detach().cpu().numpy()
@@ -291,3 +302,56 @@ class Calculator:
     def get_stress(self, atoms: Atoms) -> np.ndarray:
         """Voigt-6 stress in eV/A^3 (ASE convention)."""
         return self.calculate(atoms)["stress"]
+
+
+DEFAULT_IPROPS = [
+    "cbm", "vbm", "gap", "efermi", "optb88vdw_bandgap", "mbj_bandgap",
+    "spillage", "slme", "bulk_modulus_kv", "shear_modulus_gv",
+    "n-Seebeck", "n-powerfact", "avg_elec_mass", "avg_hole_mass",
+    "epsx", "mepsx", "max_efg", "dfpt_piezo_max_dielectric",
+    "dfpt_piezo_max_dij", "exfoliation_energy", "Tc_supercon",
+    "magmom_oszicar",
+]
+
+
+class iCalculator(Calculator):
+    """Two models: a force field for energy, forces and stress, and a
+    multi-head property model (``prop_path``) whose atomwise head gives
+    per-atom charges (column 0) and magnetic moments (column 1) and whose
+    additional head gives the properties named by `props` (default
+    :data:`DEFAULT_IPROPS`).  A negative property whose name contains
+    "gap" is clamped to 0.  The property model sees a graph built with its
+    own strategy, cutoff, neighbour count and ``use_canonize``, in its own
+    bucket (counterpart of JAX's ``iCalculator``)."""
+
+    def __init__(self, ff_path: Optional[str] = None,
+                 prop_path: Optional[str] = None, stress_wt: float = 0.05,
+                 props=None, **kw):
+        super().__init__(path=ff_path, stress_wt=stress_wt, **kw)
+        self.props = props or list(DEFAULT_IPROPS)
+        self._prop_calc = None
+        if prop_path is not None:
+            self._prop_calc = Calculator(path=prop_path, device=self.device)
+
+    def calculate(self, atoms: Atoms) -> Dict[str, Any]:
+        results = dict(super().calculate(atoms))
+        pc = self._prop_calc
+        if pc is not None:
+            g = build_graph(atoms, neighbor_strategy=pc.neighbor_strategy,
+                            cutoff=pc.cutoff,
+                            max_neighbors=pc.max_neighbors,
+                            use_canonize=pc.use_canonize)
+            res = atomwise_forward(pc.model, pc.batch_for(g))
+            n = atoms.num_atoms
+            atomwise = res["atomwise_pred"].detach().cpu().numpy()[:n]
+            if atomwise.shape[1] >= 2:
+                results["charges"] = atomwise[:, 0].tolist()
+                results["magmoms"] = atomwise[:, 1].tolist()
+            additional = res["additional"].detach().cpu().numpy()[0]
+            for name, val in zip(self.props, additional):
+                v = float(val)
+                if "gap" in name and v < 0:
+                    v = 0.0
+                results[name] = v
+        self._results = results
+        return results

@@ -47,9 +47,20 @@ from alignn_tpu_torch.ff.step_loop import (StepLoop, batch_signature,
 from alignn_tpu_torch.graph import dense as gdense
 from alignn_tpu_torch.graph.batch import BucketSpec, batch_graphs
 from alignn_tpu_torch.graph.build import build_graph
-from alignn_tpu_torch.nn.models import compute_cartesian_r
+from alignn_tpu_torch.nn.models import ALIGNNAtomWise, compute_cartesian_r
 from alignn_tpu_torch.ops.eggc import permute_rows
 from alignn_tpu_torch.ops.segment import segment_sum
+
+
+def require_alignn_atomwise(model, caller: str):
+    """The on-device loops take an ``ALIGNNAtomWise``, as JAX's do: they
+    hand the model bond vectors, which an eALIGNN model would read as
+    fractional coordinates."""
+    if not isinstance(model, ALIGNNAtomWise):
+        raise TypeError(
+            f"{caller} runs ALIGNNAtomWise models, got "
+            f"{type(model).__name__}; serve it through ff.calculator."
+            f"Calculator (the host loops of ff.md and ff.relax)")
 
 
 def energy_and_forces(model, batch, frac: torch.Tensor):
@@ -216,6 +227,7 @@ def run_md_jit(model, atoms: Atoms,
     if ensemble not in ("nve", "nvt_langevin"):
         raise ValueError(f"run_md_jit supports nve|nvt_langevin, "
                          f"got {ensemble}")
+    require_alignn_atomwise(model, "run_md_jit")
     device = resolve_device(device)
     model = model.to(device).eval()
     dt = timestep_fs * FS

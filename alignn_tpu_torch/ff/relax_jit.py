@@ -29,7 +29,8 @@ import torch
 from alignn_tpu_torch import resolve_device
 from alignn_tpu_torch.chem.atoms import Atoms
 from alignn_tpu_torch.data.loader import worst_case_spec
-from alignn_tpu_torch.ff.md_jit import energy_and_forces
+from alignn_tpu_torch.ff.md_jit import (energy_and_forces,
+                                        require_alignn_atomwise)
 from alignn_tpu_torch.ff.relax import FireParams
 from alignn_tpu_torch.ff.step_loop import (StepLoop, batch_signature,
                                            with_item_capacity)
@@ -156,6 +157,7 @@ def batch_relax(model, atoms_list: List[Atoms],
     until the batch finishes.  `device` is ``cuda`` unless ``"cpu"`` is
     passed; `cuda_graph` False runs the step eagerly on the card.
     """
+    require_alignn_atomwise(model, "batch_relax")
     device = resolve_device(device)
     model = model.to(device).eval()
     p = params or FireParams()

@@ -81,6 +81,7 @@ class GraphBatch:
     stress: torch.Tensor         # [G, 3, 3]
     atomwise_target: torch.Tensor  # [N, A]
     additional: torch.Tensor     # [G, Fadd]
+    extra_features: torch.Tensor  # [G, Fx] model inputs (Fx may be 0)
     # message-passing stages: g (atoms <- bonds), L(g) (bonds <- angles);
     # a dense batch has no lg_index (its L-stage is local pairs)
     g_index: Incidence
@@ -181,16 +182,20 @@ def _incidence(src: np.ndarray, dst: Optional[np.ndarray], num_dst: int,
 
 def padded_labels(graphs: Sequence[GraphData], n_pad: int, g_pad: int,
                   target_width: int = 1, atomwise_width: int = 0,
-                  additional_width: int = 0) -> Dict[str, np.ndarray]:
-    """The training targets of graphs whose nodes take consecutive rows
-    from 0, padded with zeros, under the width rules of the JAX batch
-    functions: a width below 1 still gives one column; a graph target of
-    another width raises."""
+                  additional_width: int = 0, extra_width: int = 0
+                  ) -> Dict[str, np.ndarray]:
+    """The training targets and the per-structure extra features of
+    graphs whose nodes take consecutive rows from 0, padded with zeros,
+    under the width rules of the JAX batch functions: a label width below
+    1 still gives one column; a graph target of another width raises; a
+    graph's extra features are cut to `extra_width` (0 columns without
+    them)."""
     target = np.zeros((g_pad, max(target_width, 1)))
     forces = np.zeros((n_pad, 3))
     stress = np.zeros((g_pad, 3, 3))
     atomwise = np.zeros((n_pad, max(atomwise_width, 1)))
     additional = np.zeros((g_pad, max(additional_width, 1)))
+    extra = np.zeros((g_pad, extra_width))
     n_off = 0
     for gi, g in enumerate(graphs):
         nn = g.num_nodes
@@ -214,16 +219,21 @@ def padded_labels(graphs: Sequence[GraphData], n_pad: int, g_pad: int,
         if g.additional is not None:
             additional[gi] = np.asarray(g.additional).reshape(-1)[
                 : additional.shape[1]]
+        if g.extra_features is not None:
+            extra[gi] = np.asarray(g.extra_features).reshape(-1)[
+                : extra_width]
         n_off += nn
     return {"target": target, "forces": forces, "stress": stress,
-            "atomwise_target": atomwise, "additional": additional}
+            "atomwise_target": atomwise, "additional": additional,
+            "extra_features": extra}
 
 
 def batch_graphs(graphs: List[GraphData], spec: BucketSpec,
                  device: torch.device, atom_features: str = "cgcnn",
                  dtype: torch.dtype = torch.float32, target_width: int = 1,
                  atomwise_width: int = 0, additional_width: int = 0,
-                 gather_windows: bool = True) -> GraphBatch:
+                 gather_windows: bool = True,
+                 extra_width: int = 0) -> GraphBatch:
     """Concatenate + pad graphs into one :class:`GraphBatch` on `device`,
     with their training targets (:func:`padded_labels`).
 
@@ -316,7 +326,7 @@ def batch_graphs(graphs: List[GraphData], spec: BucketSpec,
         graph_mask=f(graph_mask),
         **{k: f(v) for k, v in padded_labels(
             graphs, n_pad, g_pad, target_width, atomwise_width,
-            additional_width).items()},
+            additional_width, extra_width).items()},
         g_index=_incidence(src, dst, n_pad, n_pad, device, perm),
         lg_index=_incidence(lg_src, lg_dst, e_pad, e_pad, device, lg_perm),
         **windows,

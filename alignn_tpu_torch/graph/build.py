@@ -43,6 +43,7 @@ class GraphData:
     forces: Optional[np.ndarray] = None            # [N, 3]
     stress: Optional[np.ndarray] = None            # [3, 3]
     additional: Optional[np.ndarray] = None        # [Fadd]
+    extra_features: Optional[np.ndarray] = None    # [Fx] per structure
 
     @property
     def num_nodes(self) -> int:

@@ -101,7 +101,8 @@ def dense_batch_graphs(graphs: List[GraphData], spec: BucketSpec,
                        device: torch.device, atom_features: str = "cgcnn",
                        dtype: torch.dtype = torch.float32,
                        target_width: int = 1, atomwise_width: int = 0,
-                       additional_width: int = 0) -> GraphBatch:
+                       additional_width: int = 0,
+                       extra_width: int = 0) -> GraphBatch:
     """Concatenate + pad graphs into a dense-neighbourhood GraphBatch, with
     their training targets (:func:`padded_labels`).
 
@@ -229,6 +230,6 @@ def dense_batch_graphs(graphs: List[GraphData], spec: BucketSpec,
         graph_mask=f(graph_mask),
         **{k: f(v) for k, v in padded_labels(
             graphs, n_pad, g_pad, target_width, atomwise_width,
-            additional_width).items()},
+            additional_width, extra_width).items()},
         g_index=_incidence(src, None, n_pad, n_pad, device),
         lg_index=None, dense_D=D, rev=i(rev))

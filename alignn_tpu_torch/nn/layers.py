@@ -154,16 +154,20 @@ class EdgeGatedGraphConv(nn.Module):
     are the stage's static gather windows (0 = plain gather): with them the
     gathers, at every derivative order, run the windowed gather K8.
 
-    With soft edge weights w (``edge_weight``, the envelope-weighted
-    models) the gates are sigma(m) * w and the aggregation divides by
-    their sum plus ``SOFT_AGG_EPS`` (1e-3): a zero weight removes the edge
-    from both sums.  That branch runs the packed sums through K2
-    (:func:`weighted_aggregate`) and bypasses K1.
+    With soft edge weights w (``edge_weight``: the envelope-weighted
+    models, eALIGNN's inner-cutoff masks) the gates are sigma(m) * w and
+    the aggregation divides by their sum plus ``soft_eps`` (JAX's
+    ``soft_agg_eps``: 1e-3 for the envelope models, 1e-6 else): a zero
+    weight removes the edge from both sums.  On the sparse layout that
+    branch runs the packed sums through K2 (:func:`weighted_aggregate`)
+    and bypasses K1; on the dense layout it is plain sums over the D
+    block (node stage) or the s axis of the pairs (L-stage), as in JAX,
+    and bypasses K3 and K4.
 
     With a :class:`DenseWiring` the node stage runs on the dense layout
     (aggregation K3), and :meth:`pair_stage` is the dense L-stage (K4), or
-    with ``ALIGNN_TPU_FUSED_LSTAGE`` set and LayerNorm tails the fused
-    L-stage (K6, K7).
+    with ``ALIGNN_TPU_FUSED_LSTAGE`` set, LayerNorm tails and no weights
+    the fused L-stage (K6, K7).
 
     ``norm="batchnorm"`` (the property model) makes both tails masked
     BatchNorms: the node tail's statistics count the rows of
@@ -171,10 +175,12 @@ class EdgeGatedGraphConv(nn.Module):
     nodes are g's edges and the edges its angle pairs).
     """
 
-    def __init__(self, features: int, norm: str = "layernorm"):
+    def __init__(self, features: int, norm: str = "layernorm",
+                 soft_eps: float = 1e-6):
         super().__init__()
         self.features = features
         self.norm = norm
+        self.soft_eps = soft_eps
         for name in ("src_gate", "dst_gate", "edge_gate", "src_update",
                      "dst_update"):
             setattr(self, name, Dense(features, features))
@@ -188,7 +194,8 @@ class EdgeGatedGraphConv(nn.Module):
                 node_mask: Optional[torch.Tensor] = None,
                 edge_mask: Optional[torch.Tensor] = None):
         if dense is not None:
-            return self._dense_node_stage(x, e, g, dense, node_mask)
+            return self._dense_node_stage(x, e, g, dense, node_mask,
+                                          edge_weight)
         f = self.features
         w_src, w_dst, w_src_sorted = windows
         cat_e = gather_nodes(
@@ -205,18 +212,21 @@ class EdgeGatedGraphConv(nn.Module):
             h = gated_aggregate(m, bh_e, g.dst, w_agg)
         else:
             h = weighted_aggregate(
-                bh_e, torch.sigmoid(m) * edge_weight[:, None], g.dst)
+                bh_e, torch.sigmoid(m) * edge_weight[:, None], g.dst,
+                self.soft_eps)
         x_new = x + F.silu(self.norm_nodes(self.src_update(x) + h,
                                            node_mask))
         e_new = e + F.silu(self.norm_edges(m, edge_mask))
         return x_new, e_new
 
     def _dense_node_stage(self, x, e, g: Incidence, dense: DenseWiring,
-                          node_mask: Optional[torch.Tensor]):
+                          node_mask: Optional[torch.Tensor],
+                          edge_weight: Optional[torch.Tensor] = None):
         """Node stage on the dense layout (JAX ``_dense_gather_aggregate``):
         the ``[sg | bh]`` src gather transposes into K2, the dst side is a
         block broadcast (transpose: a block sum), the slot mask folds into
-        the logits, and the aggregation is K3."""
+        the logits, and the aggregation is K3, or with `edge_weight` the
+        weighted sums over each D block."""
         f, D = self.features, dense.D
         n = x.shape[0]
         cat_e = gather_nodes(
@@ -226,14 +236,28 @@ class EdgeGatedGraphConv(nn.Module):
         dg = self.dst_gate(x)
         m = (sg_e.reshape(n, D, f) + dg[:, None, :]).reshape(-1, f) \
             + self.edge_gate(e)
-        h = dense_gated_aggregate(fold_mask(m, dense.edge_mask), bh_e, D)
+        m_agg = fold_mask(m, dense.edge_mask)
+        if edge_weight is None:
+            h = dense_gated_aggregate(m_agg, bh_e, D)
+        else:
+            h = self._weighted_sums(m_agg, edge_weight, bh_e.reshape(
+                n, D, f), (n, D, f)).reshape(n, f)
         x_new = x + F.silu(self.norm_nodes(self.src_update(x) + h,
                                            node_mask))
         e_new = e + F.silu(self.norm_edges(m, dense.edge_mask))
         return x_new, e_new
 
+    def _weighted_sums(self, m, w, bh, shape):
+        """sum sigma(m) w bh / (sum sigma(m) w + soft_eps) over axis -2 of
+        `shape`, in f32 (JAX's weighted dense branches), in m's dtype."""
+        sigma = (torch.sigmoid(m.float()) * w.float()[:, None]).reshape(
+            shape)
+        num = (sigma * bh.float()).sum(dim=-2)
+        return (num / (sigma.sum(dim=-2) + self.soft_eps)).to(m.dtype)
+
     def pair_stage(self, x: torch.Tensor, e: torch.Tensor,
-                   dense: DenseWiring):
+                   dense: DenseWiring,
+                   lg_weight: Optional[torch.Tensor] = None):
         """L-stage on the dense layout (JAX ``_dense_pair_lstage``).
 
         The L(g) nodes are g's edges (x: [N*D, F] in D-blocks by dst);
@@ -243,11 +267,13 @@ class EdgeGatedGraphConv(nn.Module):
         the edge rev[j*D+t].  As in JAX the edge tail normalises the
         mask-folded m2 (only masked pair rows see the shift).
 
-        With ``ALIGNN_TPU_FUSED_LSTAGE`` set (the JAX package's own switch,
-        read per call as JAX reads it) a LayerNorm stage runs fused
-        instead; a BatchNorm stage stays here, as in JAX.
+        With `lg_weight` the aggregation is the weighted sums over s
+        (plain sums, as in JAX).  With ``ALIGNN_TPU_FUSED_LSTAGE`` set (the
+        JAX package's own switch, read per call as JAX reads it) a
+        LayerNorm stage without weights runs fused instead; a BatchNorm or
+        weighted stage stays here, as in JAX.
         """
-        if self.norm == "layernorm" and \
+        if self.norm == "layernorm" and lg_weight is None and \
                 os.environ.get("ALIGNN_TPU_FUSED_LSTAGE"):
             return self._fused_pair_stage(x, e, dense)
         f, D = self.features, dense.D
@@ -258,8 +284,12 @@ class EdgeGatedGraphConv(nn.Module):
         m2 = (sg.reshape(n, 1, D, f) + dg_r.reshape(n, D, 1, f)).reshape(
             -1, f) + self.edge_gate(e)
         m2 = fold_mask(m2, dense.lg_mask)
-        h = permute_rows(dense_pair_aggregate(m2, bh, D), dense.rev,
-                         dense.rev)
+        if lg_weight is None:
+            h_jt = dense_pair_aggregate(m2, bh, D)
+        else:
+            h_jt = self._weighted_sums(m2, lg_weight, bh.reshape(
+                n, 1, D, f), (n, D, D, f)).reshape(n * D, f)
+        h = permute_rows(h_jt, dense.rev, dense.rev)
         x_new = x + F.silu(self.norm_nodes(self.src_update(x) + h,
                                            dense.edge_mask))
         e_new = e + F.silu(self.norm_edges(m2, dense.lg_mask))
@@ -289,10 +319,11 @@ class EdgeGatedGraphConv(nn.Module):
 class ALIGNNConv(nn.Module):
     """One ALIGNN layer: EGGC on g, then EGGC on L(g)."""
 
-    def __init__(self, features: int, norm: str = "layernorm"):
+    def __init__(self, features: int, norm: str = "layernorm",
+                 soft_eps: float = 1e-6):
         super().__init__()
-        self.node_update = EdgeGatedGraphConv(features, norm)
-        self.edge_update = EdgeGatedGraphConv(features, norm)
+        self.node_update = EdgeGatedGraphConv(features, norm, soft_eps)
+        self.edge_update = EdgeGatedGraphConv(features, norm, soft_eps)
 
     def forward(self, x, y, z, g: Incidence, lg: Optional[Incidence],
                 dense: Optional[DenseWiring] = None,
@@ -302,15 +333,15 @@ class ALIGNNConv(nn.Module):
                 lg_weight: Optional[torch.Tensor] = None,
                 masks: Tuple[Optional[torch.Tensor], ...] = (None,) * 3):
         """`edge_weight` [E] weighs the node stage's edges, `lg_weight`
-        [L] the line-graph stage's (soft weights; the sparse layout only,
-        as the model enforces).  `masks` = (node, edge, lg) row masks, read
-        by BatchNorm tails."""
+        [L] the line-graph stage's (soft weights).  `masks` = (node, edge,
+        lg) row masks, read by BatchNorm tails."""
         node_mask, edge_mask, lg_mask = masks
         if dense is not None:
             # the dense L-stage is local pairs wired by rev: it reads no
             # line-graph index arrays
-            x, m = self.node_update(x, y, g, dense, node_mask=node_mask)
-            y, z = self.edge_update.pair_stage(m, z, dense)
+            x, m = self.node_update(x, y, g, dense, edge_weight=edge_weight,
+                                    node_mask=node_mask)
+            y, z = self.edge_update.pair_stage(m, z, dense, lg_weight)
             return x, y, z
         x, m = self.node_update(x, y, g, windows=windows,
                                 edge_weight=edge_weight,

@@ -12,13 +12,16 @@ gradient (:func:`atomwise_forward`), or with ``include_pos_deriv`` from
 the gradient with respect to the atom positions.  Envelope-weighted
 models (``envelope_edge_weights``) weigh every aggregation by a smooth
 envelope of the bond lengths (:func:`envelope_weights`), sparse layout
-only.
+only.  A model with ``extra_features`` reads per-structure features
+(``batch.extra_features``) into its output head
+(:func:`extra_features_head`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Any, Dict
 
 import torch
@@ -31,8 +34,8 @@ from alignn_tpu_torch.nn.layers import (ALIGNNConv, Dense, DenseWiring,
                                         RBFExpansion)
 from alignn_tpu_torch.ops.basis import (bond_cosines, bond_cosines_dense,
                                         cutoff_function_based_edges)
-from alignn_tpu_torch.ops.eggc import gather_nodes, permute_rows, \
-    sorted_gather
+from alignn_tpu_torch.ops.eggc import SOFT_AGG_EPS, gather_nodes, \
+    permute_rows, sorted_gather
 from alignn_tpu_torch.ops.gather import windows_enabled
 from alignn_tpu_torch.ops.segment import graph_readout_mean, segment_sum
 
@@ -120,6 +123,21 @@ class ALIGNNAtomWiseConfig:
         return cls(**{k: v for k, v in d.items() if k in known})
 
 
+def refuse_unported(cfg):
+    """Raise for the two opt-in switches of the JAX package that the port
+    does not have yet: ``remat_layers`` (JAX recomputes each layer in the
+    backward) and ``ALIGNN_TPU_FP8_LTABLES`` (JAX rounds the L-sized
+    tables through e4m3, so its values differ)."""
+    if getattr(cfg, "remat_layers", False):
+        raise NotImplementedError(
+            'remat_layers is not ported yet (ROADMAP.md §1 "Remaining '
+            'modules")')
+    if os.environ.get("ALIGNN_TPU_FP8_LTABLES", "") not in ("", "0"):
+        raise NotImplementedError(
+            'ALIGNN_TPU_FP8_LTABLES is not ported yet (ROADMAP.md §1 '
+            '"Remaining modules"); unset it to build a model')
+
+
 def _link_init_bias(link: str):
     """The output bias a link function starts from (None: the default
     draw): log(0.7) for the log link, the reference's average band gap."""
@@ -131,8 +149,9 @@ def _link_init_bias(link: str):
 def _init_link_bias(model: nn.Module):
     """Set ``fc.bias`` to the link's start value, where it has one (not
     for classification, whose head JAX builds without it)."""
-    value = None if model.cfg.classification \
-        else _link_init_bias(model.cfg.link)
+    cfg = model.cfg
+    value = None if cfg.classification or cfg.extra_features \
+        else _link_init_bias(cfg.link)
     if value is not None:
         with torch.no_grad():
             model.fc.bias.fill_(value)
@@ -175,22 +194,30 @@ class _Embeddings(nn.Module):
 
 
 class _Trunk(nn.Module):
-    """ALIGNN conv stack + GCN stack."""
+    """ALIGNN conv stack + GCN stack.  Soft aggregation weights divide by
+    their sum plus 1e-3 in an envelope-weighted model and 1e-6 otherwise
+    (eALIGNN's inner-cutoff masks), as in JAX."""
 
     def __init__(self, cfg, norm: str = "layernorm"):
         super().__init__()
         self.alignn_layers = cfg.alignn_layers
         self.gcn_layers = cfg.gcn_layers
+        eps = SOFT_AGG_EPS if getattr(cfg, "envelope_edge_weights", False) \
+            else 1e-6
         for i in range(cfg.alignn_layers):
             setattr(self, f"alignn_layers_{i}",
-                    ALIGNNConv(cfg.hidden_features, norm))
+                    ALIGNNConv(cfg.hidden_features, norm, eps))
         for i in range(cfg.gcn_layers):
             setattr(self, f"gcn_layers_{i}",
-                    EdgeGatedGraphConv(cfg.hidden_features, norm))
+                    EdgeGatedGraphConv(cfg.hidden_features, norm, eps))
 
     def forward(self, batch: GraphBatch, x, y, z, edge_weight=None,
-                lg_weight=None):
-        dense = DenseWiring(batch.dense_D, batch.edge_mask, batch.lg_mask,
+                lg_weight=None, edge_mask=None, lg_mask=None):
+        """`edge_mask` / `lg_mask` stand in for the batch's masks where
+        the layers read them (eALIGNN passes its inner-cutoff masks)."""
+        edge_mask = batch.edge_mask if edge_mask is None else edge_mask
+        lg_mask = batch.lg_mask if lg_mask is None else lg_mask
+        dense = DenseWiring(batch.dense_D, edge_mask, lg_mask,
                             batch.rev) if batch.dense_D else None
         # the batch's static gather windows, read with the switch as JAX
         # reads it (a dense batch's are 0)
@@ -200,7 +227,7 @@ class _Trunk(nn.Module):
                        batch.win_lg_src_sorted)
         else:
             wins = lg_wins = (0, 0, 0)
-        masks = (batch.node_mask, batch.edge_mask, batch.lg_mask)
+        masks = (batch.node_mask, edge_mask, lg_mask)
         for i in range(self.alignn_layers):
             x, y, z = getattr(self, f"alignn_layers_{i}")(
                 x, y, z, batch.g_index, batch.lg_index, dense, wins, lg_wins,
@@ -208,8 +235,32 @@ class _Trunk(nn.Module):
         for i in range(self.gcn_layers):
             x, y = getattr(self, f"gcn_layers_{i}")(
                 x, y, batch.g_index, dense, wins, edge_weight,
-                batch.node_mask, batch.edge_mask)
+                batch.node_mask, edge_mask)
         return x, y
+
+
+def add_extra_features_head(model: nn.Module, cfg, norm: str):
+    """The submodules of Gong et al.'s extra-features head on `model`
+    itself, under the flax names: ``extra_feature_embedding`` (an MLP
+    over the Fx per-structure features), then ``fc1`` and ``fc2`` (MLPs
+    over the readout concatenated with it) and the ``fc3`` Dense."""
+    fx = cfg.extra_features
+    width = cfg.hidden_features + fx
+    model.extra_feature_embedding = MLPLayer(fx, fx, norm)
+    model.fc1 = MLPLayer(width, width, norm)
+    model.fc2 = MLPLayer(width, width, norm)
+    model.fc3 = Dense(width, cfg.output_features)
+
+
+def extra_features_head(model: nn.Module, h: torch.Tensor,
+                        batch: GraphBatch) -> torch.Tensor:
+    """[G, output_features] from the readout `h` and the batch's
+    per-structure features (JAX ``extra_features_head``); BatchNorm
+    statistics count the rows of ``graph_mask``."""
+    gm = batch.graph_mask
+    feats = model.extra_feature_embedding(batch.extra_features, gm)
+    hh = model.fc1(torch.cat([h, feats], dim=1), gm)
+    return model.fc3(model.fc2(hh, gm))
 
 
 class ALIGNN(nn.Module):
@@ -224,15 +275,16 @@ class ALIGNN(nn.Module):
 
     def __init__(self, cfg: ALIGNNConfig):
         super().__init__()
-        if cfg.extra_features:
-            raise NotImplementedError(
-                "extra_features is not ported yet (ROADMAP.md §1 item 6)")
+        refuse_unported(cfg)
         self.cfg = cfg
         self.embeddings = _Embeddings(cfg, "batchnorm")
         self.trunk = _Trunk(cfg, "batchnorm")
-        self.fc = Dense(cfg.hidden_features, cfg.num_classes
-                        if cfg.classification else cfg.output_features)
-        _init_link_bias(self)
+        if cfg.extra_features:
+            add_extra_features_head(self, cfg, "batchnorm")
+        else:
+            self.fc = Dense(cfg.hidden_features, cfg.num_classes
+                            if cfg.classification else cfg.output_features)
+            _init_link_bias(self)
 
     def forward(self, batch: GraphBatch) -> torch.Tensor:
         cfg = self.cfg
@@ -242,9 +294,9 @@ class ALIGNN(nn.Module):
             bond_cosines(batch.r, batch.lg_src, batch.lg_dst)
         x, y, z = self.embeddings(batch, bondlength, cosines)
         x, _y = self.trunk(batch, x, y, z)
-        out = _apply_link(
-            self.fc(graph_readout_mean(x, batch.node_graph, batch.n_nodes)),
-            cfg.link)
+        h = graph_readout_mean(x, batch.node_graph, batch.n_nodes)
+        out = _apply_link(extra_features_head(self, h, batch)
+                          if cfg.extra_features else self.fc(h), cfg.link)
         if cfg.classification:
             out = torch.log_softmax(out, dim=1)
         return out
@@ -262,20 +314,11 @@ class ALIGNNAtomWise(nn.Module):
 
     def __init__(self, cfg: ALIGNNAtomWiseConfig):
         super().__init__()
-        if cfg.extra_features:
-            raise NotImplementedError("extra_features is not ported yet")
+        refuse_unported(cfg)
         self.cfg = cfg
         self.embeddings = _Embeddings(cfg)
         self.trunk = _Trunk(cfg)
-        hid = cfg.hidden_features
-        self.fc = Dense(hid, 1 if cfg.classification
-                        else cfg.output_features)
-        _init_link_bias(self)
-        if cfg.additional_output_features > 0:
-            self.fc_additional_output = Dense(
-                hid, cfg.additional_output_features)
-        if cfg.atomwise_output_features > 0:
-            self.fc_atomwise = Dense(hid, cfg.atomwise_output_features)
+        add_atomwise_heads(self, cfg)
 
     def forward(self, batch: GraphBatch, r: torch.Tensor):
         cfg = self.cfg
@@ -352,18 +395,41 @@ def init_parameters(model: nn.Module,
                 if isinstance(m, MaskedBatchNorm):
                     m.mean.zero_()
                     m.var.fill_(1.0)
-    if isinstance(model, (ALIGNN, ALIGNNAtomWise)):
+    if hasattr(model, "cfg"):
         _init_link_bias(model)
     return model
 
 
-def atomwise_heads(model: ALIGNNAtomWise, batch: GraphBatch,
-                   x: torch.Tensor, bondlength: torch.Tensor
-                   ) -> Dict[str, torch.Tensor]:
-    """Readout, output heads, penalty and the energy `en_out`."""
+def add_atomwise_heads(model: nn.Module, cfg, fc_out=None):
+    """The output heads of a force field on `model` (JAX
+    ``atomwise_heads``'s submodules): ``fc`` (`fc_out` wide, by default 1
+    for a classifier and else ``output_features``) or the extra-features
+    head, then ``fc_additional_output`` and ``fc_atomwise`` where asked
+    for."""
+    hid = cfg.hidden_features
+    if cfg.extra_features:
+        add_extra_features_head(model, cfg, "layernorm")
+    else:
+        if fc_out is None:
+            fc_out = 1 if cfg.classification else cfg.output_features
+        model.fc = Dense(hid, fc_out)
+        _init_link_bias(model)
+    if cfg.additional_output_features > 0:
+        model.fc_additional_output = Dense(
+            hid, cfg.additional_output_features)
+    if cfg.atomwise_output_features > 0:
+        model.fc_atomwise = Dense(hid, cfg.atomwise_output_features)
+
+
+def atomwise_heads(model: nn.Module, batch: GraphBatch,
+                   x: torch.Tensor, bondlength: torch.Tensor,
+                   classify=torch.sigmoid) -> Dict[str, torch.Tensor]:
+    """Readout, output heads, penalty and the energy `en_out`; a
+    classifier's output goes through `classify`."""
     cfg = model.cfg
     h = graph_readout_mean(x, batch.node_graph, batch.n_nodes)
-    out = model.fc(h)
+    out = extra_features_head(model, h, batch) if cfg.extra_features \
+        else model.fc(h)
     result: Dict[str, torch.Tensor] = {}
     if cfg.additional_output_features > 0:
         result["additional"] = model.fc_additional_output(h)
@@ -388,7 +454,7 @@ def atomwise_heads(model: ALIGNNAtomWise, batch: GraphBatch,
 
     out = _apply_link(out, cfg.link)
     if cfg.classification:
-        out = torch.sigmoid(out)
+        out = classify(out)
     result["out"] = out
     result["en_out"] = en_out
     result["bondlength"] = bondlength

@@ -388,8 +388,9 @@ SOFT_AGG_EPS = 1e-3
 
 
 def weighted_aggregate(bh: torch.Tensor, sigma: torch.Tensor,
-                       seg: Segments) -> torch.Tensor:
-    """h[n] = sum_e sigma_e bh_e / (sum_e sigma_e + SOFT_AGG_EPS) over
+                       seg: Segments, eps: float = SOFT_AGG_EPS
+                       ) -> torch.Tensor:
+    """h[n] = sum_e sigma_e bh_e / (sum_e sigma_e + eps) over
     sorted dst, for gates that carry soft edge weights
     (sigma = sigmoid(m) * w, the envelope-weighted models; JAX
     ``edge_gated_aggregate``).
@@ -397,8 +398,9 @@ def weighted_aggregate(bh: torch.Tensor, sigma: torch.Tensor,
     The packed ``[sigma bh | sigma]`` table is one sorted segment sum
     (K2), whose VJP is :func:`sorted_gather` and whose second order is
     K2 again; on the CPU it is the plain index_add.  Unlike K1 the gates
-    come in as values, so the weights are the caller's.
+    come in as values, so the weights are the caller's.  eALIGNN's
+    inner-cutoff masks divide by the sum plus 1e-6, as in JAX.
     """
     f = bh.shape[-1]
     summed = sorted_segment_sum(torch.cat([bh * sigma, sigma], dim=-1), seg)
-    return summed[:, :f] / (summed[:, f:] + SOFT_AGG_EPS)
+    return summed[:, :f] / (summed[:, f:] + eps)

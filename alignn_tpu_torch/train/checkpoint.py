@@ -16,6 +16,11 @@ same payload).
   port's full training state (``restart.mpk``): weights, BatchNorm
   buffers, the torch optimizer's state, the step, the epoch and
   ``extra``.  Only the port reads it.
+- :func:`convert_torch_checkpoint` reads a checkpoint of the reference
+  implementation (a ``.pt`` state dict) into the JAX package's tree, and
+  :func:`merge_converted` lays it over a model's own tree, reporting what
+  it did not cover; :func:`save_converted_checkpoint` writes the result
+  as a weights file.
 """
 
 from __future__ import annotations
@@ -326,3 +331,172 @@ def check_feature_table(meta: Optional[Dict[str, Any]],
             f" embeddings will see different inputs", stacklevel=2)
         return False
     return True
+
+
+# ---------------------------------------------------------------------------
+# reference-format .pt checkpoints (the reference's own state dicts)
+# ---------------------------------------------------------------------------
+
+_NORM_MAP = {"weight": "scale", "bias": "bias",
+             "running_mean": "mean", "running_var": "var"}
+
+
+def _convert_entries(sd: Dict[str, np.ndarray], layout: str = "nested"):
+    """Yield (flax path tuple, collection, array) for each entry of a
+    reference state dict that has a place in the JAX package's tree.
+
+    The reference names (models/alignn.py, models/alignn_atomwise.py):
+    ``atom_embedding.layer.{0: Linear, 1: Norm}.*`` (an MLPLayer),
+    ``edge_embedding`` / ``angle_embedding`` Sequentials of an RBF (index
+    0, no parameters) and two MLPLayers, ``alignn_layers.N.{node_update,
+    edge_update}.<EGGC>`` and ``gcn_layers.N.<EGGC>`` with EGGC fields
+    ``src_gate``, ``dst_gate``, ``edge_gate``, ``src_update``,
+    ``dst_update``, ``bn_nodes``, ``bn_edges``; the heads ``fc``,
+    ``fc1``..``fc3``, ``fc_atomwise``, ``fc_additional_output`` (``fc1``
+    and ``fc2`` are MLPLayers in an extra-features model) and
+    ``extra_feature_embedding``.  A DDP ``module.`` prefix is dropped.
+
+    `layout` "nested" gives the ALIGNN / ALIGNNAtomWise tree
+    (``embeddings/`` and ``trunk/``), "flat" eALIGNN's (everything at the
+    top).  Unknown entries are skipped.
+    """
+    def mlp(dest, rest, arr):
+        # rest: ['layer', '0', 'weight'] (Linear) or ['layer', '1', p]
+        if len(rest) < 3 or rest[0] != "layer":
+            return None
+        idx, p = rest[1], rest[2]
+        if idx == "0":
+            if p == "weight":
+                return dest + ("linear", "kernel"), "params", arr.T
+            return dest + ("linear", "bias"), "params", arr
+        if p in ("running_mean", "running_var"):
+            return dest + ("norm", _NORM_MAP[p]), "batch_stats", arr
+        if p == "num_batches_tracked":
+            return None
+        return dest + ("norm", _NORM_MAP[p]), "params", arr
+
+    def eggc(dest, rest, arr):
+        mod, p = rest[0], rest[-1]
+        if mod in ("src_gate", "dst_gate", "edge_gate", "src_update",
+                   "dst_update"):
+            if p == "weight":
+                return dest + (mod, "kernel"), "params", arr.T
+            return dest + (mod, "bias"), "params", arr
+        if mod in ("norm_nodes", "norm_edges", "bn_nodes", "bn_edges"):
+            name = {"bn_nodes": "norm_nodes",
+                    "bn_edges": "norm_edges"}.get(mod, mod)
+            if p in ("running_mean", "running_var"):
+                return dest + (name, _NORM_MAP[p]), "batch_stats", arr
+            if p == "num_batches_tracked":
+                return None
+            return dest + (name, _NORM_MAP[p]), "params", arr
+        return None
+
+    emb = () if layout == "flat" else ("embeddings",)
+    trunk = () if layout == "flat" else ("trunk",)
+    for key, w in sd.items():
+        parts = key.split(".")
+        arr = np.asarray(w)
+        if parts[0] == "module":
+            parts = parts[1:]
+        head = parts[0]
+        out = None
+        if head == "atom_embedding":
+            out = mlp(emb + ("atom_embedding",), parts[1:], arr)
+        elif head in ("edge_embedding", "angle_embedding"):
+            if parts[1] != "0":      # index 0 is the RBF
+                out = mlp(emb + (f"{head}_{int(parts[1]) - 1}",),
+                          parts[2:], arr)
+        elif head == "extra_feature_embedding":
+            out = mlp(("extra_feature_embedding",), parts[1:], arr)
+        elif head == "alignn_layers":
+            out = eggc(trunk + (f"alignn_layers_{parts[1]}", parts[2]),
+                       parts[3:], arr)
+        elif head == "gcn_layers":
+            out = eggc(trunk + (f"gcn_layers_{parts[1]}",), parts[2:], arr)
+        elif head in ("fc", "fc1", "fc2", "fc3", "fc_atomwise",
+                      "fc_additional_output"):
+            if len(parts) >= 3 and parts[1] == "layer":
+                out = mlp((head,), parts[1:], arr)
+            else:
+                p = parts[2] if len(parts) >= 3 and parts[1].isdigit() \
+                    else parts[1]
+                if p == "weight":
+                    out = (head, "kernel"), "params", arr.T
+                elif p == "bias":
+                    # the reference's log-link init leaves a 0-d fc.bias
+                    out = (head, "bias"), "params", np.atleast_1d(arr)
+        if out is not None:
+            yield out
+
+
+def _unflatten(flat: Dict[Tuple[str, ...], Any]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for path, leaf in flat.items():
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = leaf
+    return tree
+
+
+def _flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()
+             ) -> Dict[Tuple[str, ...], Any]:
+    flat: Dict[Tuple[str, ...], Any] = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            flat.update(_flatten(value, prefix + (key,)))
+        else:
+            flat[prefix + (key,)] = value
+    return flat
+
+
+def convert_torch_checkpoint(pt_path: str, layout: str = "nested"
+                             ) -> Tuple[Dict, Dict]:
+    """A reference ``.pt`` checkpoint (a state dict, ``{"model": state
+    dict}`` or a module) as the JAX package's (params, batch_stats)
+    trees of numpy arrays; `layout` "nested" for ALIGNN / ALIGNNAtomWise,
+    "flat" for eALIGNN."""
+    obj = torch.load(pt_path, map_location="cpu", weights_only=False)
+    sd = obj.get("model", obj) if isinstance(obj, dict) else obj
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    sd = {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+          else np.asarray(v) for k, v in sd.items()}
+    flat: Dict[str, Dict[Tuple[str, ...], np.ndarray]] = {
+        "params": {}, "batch_stats": {}}
+    for path, coll, arr in _convert_entries(sd, layout=layout):
+        flat[coll][path] = arr
+    return _unflatten(flat["params"]), _unflatten(flat["batch_stats"])
+
+
+def save_converted_checkpoint(pt_path: str, out_path: str,
+                              atom_features: str = "cgcnn",
+                              layout: str = "nested") -> str:
+    """Convert a reference ``.pt`` checkpoint into a weights file stamped
+    with the feature table it was converted against."""
+    params, stats = convert_torch_checkpoint(pt_path, layout=layout)
+    meta = checkpoint_meta(atom_features,
+                           converted_from=os.path.basename(pt_path))
+    save_params(out_path, params, stats or None, meta=meta)
+    return out_path
+
+
+def merge_converted(template: Dict, converted: Dict) -> Tuple[Dict, Dict]:
+    """(tree, report): `template` with each leaf that `converted` holds at
+    the same path and shape replaced (in the template leaf's dtype).
+    ``report`` lists the template paths ``missing`` from the conversion
+    (they keep their values), those ``mismatched`` in shape, and the
+    converted paths ``unused``, each as "a/b/c"."""
+    t, c = _flatten(template), _flatten(converted)
+    missing, mismatched = [], []
+    for k in t:
+        if k not in c:
+            missing.append("/".join(k))
+        elif np.shape(c[k]) == np.shape(t[k]):
+            t[k] = np.asarray(c[k], dtype=np.asarray(t[k]).dtype)
+        else:
+            mismatched.append("/".join(k))
+    report = {"missing": missing, "mismatched": mismatched,
+              "unused": ["/".join(k) for k in c if k not in t]}
+    return _unflatten(t), report

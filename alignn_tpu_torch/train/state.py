@@ -2,8 +2,9 @@
 
 Counterpart of ``alignn_tpu/train/state.py``.  One training step of the
 force field is its forward with ``create_graph=True`` (the forces are
--dE/dr, so the loss differentiates through that gradient), the weighted
-loss, one backward and one optimizer update.  One step of the property
+-dE/dr, or for eALIGNN -dE/dfrac through the lattice, so the loss
+differentiates through that gradient), the weighted loss, one backward
+and one optimizer update.  One step of the property
 model (``ALIGNN``) runs its forward in train mode, which moves the
 BatchNorm running statistics once, then ``property_loss`` (NLL over the
 log-probabilities for a classifier); its eval step runs in eval
@@ -22,6 +23,7 @@ import torch
 from torch import nn
 
 from alignn_tpu_torch.graph.batch import GraphBatch
+from alignn_tpu_torch.nn.ealignn import eALIGNNAtomWise, ealignn_forward
 from alignn_tpu_torch.nn.layers import MaskedBatchNorm
 from alignn_tpu_torch.nn.models import ALIGNNAtomWise, atomwise_forward
 from alignn_tpu_torch.train.losses import atomwise_loss, property_loss
@@ -69,8 +71,10 @@ def _forward_and_loss(model: nn.Module, batch: GraphBatch, criterion: str,
                                  Dict[str, torch.Tensor]]:
     """(losses, predictions); `create_graph` keeps the force pass
     differentiable for a training step."""
-    if isinstance(model, ALIGNNAtomWise):
-        res = atomwise_forward(model, batch, create_graph=create_graph)
+    if isinstance(model, (ALIGNNAtomWise, eALIGNNAtomWise)):
+        forward = ealignn_forward if isinstance(model, eALIGNNAtomWise) \
+            else atomwise_forward
+        res = forward(model, batch, create_graph=create_graph)
         return atomwise_loss(res, batch, model.cfg,
                              classification=classification), res
     out = model(batch)

@@ -36,8 +36,9 @@ from alignn_tpu_torch.chem.atoms import dumpjson
 from alignn_tpu_torch.config import TrainingConfig
 from alignn_tpu_torch.data.loader import BucketedLoader
 from alignn_tpu_torch.nn.convert import flax_from_module, state_dict_from_flax
+from alignn_tpu_torch.nn.ealignn import eALIGNNAtomWise
 from alignn_tpu_torch.nn.models import (ALIGNN, ALIGNNAtomWise,
-                                        ALIGNNAtomWiseConfig, init_parameters)
+                                        init_parameters)
 from alignn_tpu_torch.train.checkpoint import (check_feature_table,
                                                checkpoint_meta,
                                                load_params_with_meta,
@@ -57,6 +58,8 @@ def build_model(model_cfg) -> torch.nn.Module:
         return ALIGNN(model_cfg)
     if name == "alignn_atomwise":
         return ALIGNNAtomWise(model_cfg)
+    if name == "ealignn_atomwise":
+        return eALIGNNAtomWise(model_cfg)
     raise ValueError(f"unknown model name: {name}")
 
 
@@ -145,12 +148,13 @@ def train_model(config: TrainingConfig, train_loader: BucketedLoader,
     config.dump(os.path.join(output_dir, "config.json"))
     if config.dtype not in ("float32", "float64"):   # f64 runs f32, as JAX
         raise NotImplementedError(
-            f"dtype {config.dtype!r} is not ported yet (ROADMAP.md §1 "
-            f"item 5)")
+            f'dtype {config.dtype!r} is not ported yet (ROADMAP.md §1 '
+            f'"bf16 compute dtype")')
 
     classification = config.classification_threshold is not None or \
         getattr(config.model, "classification", False)
-    is_atomwise = isinstance(config.model, ALIGNNAtomWiseConfig)
+    is_atomwise = getattr(config.model, "name", "") in (
+        "alignn_atomwise", "ealignn_atomwise")
     if model is None:
         model = init_parameters(
             build_model(config.model),
@@ -267,6 +271,7 @@ def train_model(config: TrainingConfig, train_loader: BucketedLoader,
             target_width=train_loader.target_width,
             atomwise_width=train_loader.atomwise_width,
             additional_width=train_loader.additional_width,
+            extra_width=train_loader.extra_width,
             device=train_loader.device)
         dumpjson(results.per_sample(dump_loader),
                  os.path.join(output_dir, "Train_results.json"))

@@ -2,10 +2,12 @@
 ``alignn_tpu/zoo.py``).
 
 A model directory holds ``config.json`` and a flax ``.mpk`` weights file,
-written by either package.  :func:`load_model_dir` builds the model the
-config names (``alignn`` or ``alignn_atomwise``) with its BatchNorm
-statistics; :func:`predict_structures` runs it over structures, padded
-into shared buckets.  The registry of the reference's figshare models is
+written by either package, or a checkpoint of the reference
+implementation (``.pt``), converted at load and cached beside it as
+``converted_model.mpk``.  :func:`load_model_dir` builds the model the
+config names (``alignn``, ``alignn_atomwise`` or ``ealignn_atomwise``)
+with its BatchNorm statistics; :func:`predict_structures` runs it over
+structures, padded into shared buckets.  The registry of the reference's figshare models is
 this package's copy of ``zoo_models.json``; nothing is downloaded here.
 """
 
@@ -21,9 +23,13 @@ import torch
 from alignn_tpu_torch import resolve_device
 from alignn_tpu_torch.chem.atoms import Atoms
 from alignn_tpu_torch.config import model_config_from_dict
-from alignn_tpu_torch.nn.convert import state_dict_from_flax
+from alignn_tpu_torch.nn.convert import flax_from_module, state_dict_from_flax
+from alignn_tpu_torch.nn.models import init_parameters
 from alignn_tpu_torch.train.checkpoint import (check_feature_table,
-                                               load_params_with_meta)
+                                               checkpoint_meta,
+                                               convert_torch_checkpoint,
+                                               load_params_with_meta,
+                                               merge_converted, save_params)
 
 _REGISTRY_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                               "zoo_models.json")
@@ -65,6 +71,15 @@ def load_model_dir(model_dir: str, device=None
     its ``batch_stats`` become the BatchNorm buffers.  A per-species
     energy baseline stamped into the checkpoint (or stored as
     ``species_baseline.json``) is returned in the config dict.
+
+    Without an ``.mpk`` (or with a ``converted_model.mpk`` older than the
+    ``.pt`` beside it) a reference ``.pt`` is converted, as JAX does,
+    with the nested layout whatever the model, and laid over the model's
+    own weights, which are drawn from seed 0; the parameters it does not
+    cover keep them (an eALIGNN ``.pt``'s trunk and embeddings do: a
+    quirk of the JAX package, kept).  The result is cached as
+    ``converted_model.mpk`` beside the ``.pt`` where the directory is
+    writable.
     """
     from alignn_tpu_torch.train.trainer import build_model
 
@@ -78,8 +93,14 @@ def load_model_dir(model_dir: str, device=None
                                                             cfg_dict)))
     mpk = _find(model_dir, ["best_model.mpk", "last_model.mpk",
                             "current_model.mpk", ".mpk"])
+    if mpk is not None and os.path.basename(mpk) == "converted_model.mpk":
+        # a replaced .pt wins over the cache of its older conversion
+        pt_src = _find(model_dir, [".pt"])
+        if pt_src is not None and \
+                os.path.getmtime(pt_src) > os.path.getmtime(mpk):
+            mpk = None
     if mpk is None:
-        raise FileNotFoundError(f"no .mpk checkpoint under {model_dir}")
+        return _load_pt(model_dir, model, cfg_dict, device)
     params, batch_stats, meta = load_params_with_meta(mpk)
     check_feature_table(meta, cfg_dict.get("atom_features", "cgcnn"), mpk)
     sb = meta.get("species_baseline")
@@ -92,6 +113,34 @@ def load_model_dir(model_dir: str, device=None
         cfg_dict = {**cfg_dict, "species_baseline": sb}
     model.load_state_dict(state_dict_from_flax(
         params, dtype=torch.float32, batch_stats=batch_stats))
+    return model.to(device).eval(), cfg_dict
+
+
+def _load_pt(model_dir: str, model: torch.nn.Module,
+             cfg_dict: Dict[str, Any], device
+             ) -> Tuple[torch.nn.Module, Dict[str, Any]]:
+    """The ``.pt`` half of :func:`load_model_dir`."""
+    pt = _find(model_dir, ["best_model.pt", "current_model.pt",
+                           "last_model.pt", ".pt"])
+    if pt is None:
+        raise FileNotFoundError(f"no checkpoint under {model_dir}")
+    init_parameters(model, torch.Generator().manual_seed(0))
+    params, stats = flax_from_module(model)
+    cparams, cstats = convert_torch_checkpoint(pt)
+    params, report = merge_converted(params, cparams)
+    if report["missing"]:
+        print(f"[zoo] {len(report['missing'])} params not in checkpoint "
+              f"(kept init): {report['missing'][:4]}...")
+    if cstats and stats:
+        stats, _ = merge_converted(stats, cstats)
+    model.load_state_dict(state_dict_from_flax(params, batch_stats=stats))
+    cache = os.path.join(os.path.dirname(pt), "converted_model.mpk")
+    try:
+        save_params(cache, params, stats or None, meta=checkpoint_meta(
+            cfg_dict.get("atom_features", "cgcnn"),
+            converted_from=os.path.basename(pt)))
+    except OSError:    # a read-only model directory: converted in memory
+        pass
     return model.to(device).eval(), cfg_dict
 
 
@@ -111,19 +160,24 @@ def predict_structures(model: torch.nn.Module, atoms_list: List[Atoms],
                        cutoff: float = 8.0, max_neighbors: int = 12,
                        neighbor_strategy: str = "k-nearest",
                        atom_features: str = "cgcnn",
-                       batch_size: int = 32) -> np.ndarray:
+                       batch_size: int = 32,
+                       extra_features=None) -> np.ndarray:
     """[n, T] predictions of `model` (on its own device, in eval mode)
     for each structure, batches padded to one bucket; a force field's
-    graph-level output."""
+    graph-level output.  A model with ``extra_features`` takes them from
+    `extra_features`, one vector a structure."""
     from alignn_tpu_torch.data.loader import worst_case_spec
     from alignn_tpu_torch.graph.batch import batch_graphs
     from alignn_tpu_torch.graph.build import build_graph
+    from alignn_tpu_torch.nn.ealignn import eALIGNNAtomWise, ealignn_forward
     from alignn_tpu_torch.nn.models import ALIGNNAtomWise, atomwise_forward
 
     device = next(model.parameters()).device
     graphs = [build_graph(a, neighbor_strategy=neighbor_strategy,
                           cutoff=cutoff, max_neighbors=max_neighbors)
               for a in atoms_list]
+    for g, x in zip(graphs, extra_features or ()):
+        g.extra_features = np.asarray(x, dtype=np.float64).reshape(-1)
     spec = worst_case_spec(graphs, min(batch_size, len(graphs)))
     model.eval()
     outs = []
@@ -131,8 +185,11 @@ def predict_structures(model: torch.nn.Module, atoms_list: List[Atoms],
         chunk = graphs[s:s + batch_size]
         batch = batch_graphs(chunk, spec, device,
                              atom_features=atom_features,
-                             gather_windows=False)
-        if isinstance(model, ALIGNNAtomWise):
+                             gather_windows=False,
+                             extra_width=model.cfg.extra_features)
+        if isinstance(model, eALIGNNAtomWise):
+            out = ealignn_forward(model, batch)["out"]
+        elif isinstance(model, ALIGNNAtomWise):
             out = atomwise_forward(model, batch)["out"]
         else:
             with torch.no_grad():

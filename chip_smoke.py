@@ -109,6 +109,29 @@ Phases:
    run: seconds per epoch, ms per step, the trainer's edges/s,
    graph-stage seconds, cache hits, peak memory.
 
+12. the model families (``model_families``): (e) eALIGNN at its
+   published defaults (2+2/64, inner cutoff 4 A, torque removed), seeded
+   weights, served by the Calculator with docs/mlearn_r4/Si's graph on
+   si64_rattled, si512_rattled and a 64-atom rattled rocksalt cell,
+   sparse, dense and dense under ALIGNN_TPU_FUSED_LSTAGE=1 (K2 launched,
+   no other kernel), against the port on the CPU and the fused switch
+   against the dense results; (e-train) eALIGNN through ``cli.train`` for
+   one epoch on 40 labelled 64-atom rocksalt cells with the Si config's
+   trainer settings, its first step against the CPU port (float32, or
+   float64 where float32 misses); (x) the property model at its defaults
+   with 6 extra features a structure on 128 rocksalt cells, one epoch
+   sparse and one dense from the cache (each first step against the CPU
+   port), and the last weights' predictions with the features against
+   Test_results.json; (x-ff) 6 train steps of docs/mlearn_r4/Si's model
+   config with 6 extra features on 5 si64 cells, the first against the
+   CPU port; (i) ``iCalculator`` with docs/mlearn_r4/Si and a seeded
+   full-width property model (atomwise 2, additional 22) on si64 and
+   si512: E/F/S bit for bit the plain Calculator's (under torch's
+   deterministic algorithms), the charges, magmoms and properties
+   against the CPU port, ms a call beside the plain Calculator's.  Each
+   run prints ms a call or step, the device's busy share and launches
+   per kernel, and holds its need/banned launch lists.
+
 K3 is also launched twice at both dense shapes (bit-identical), with its
 fully masked (padded) nodes exactly 0 and one fill of its output timed
 beside it; every dense kernel's entry carries its share of the bound.
@@ -575,8 +598,6 @@ def breakdown(calc, atoms):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from alignn_tpu_torch.nn.models import atomwise_forward
-
     clock = [time.perf_counter()]
 
     def lap():
@@ -588,7 +609,7 @@ def breakdown(calc, atoms):
     stages = {"graph": lap()}
     batch = calc.batch_for(g)
     stages["batch"] = lap()
-    res = atomwise_forward(calc.model, batch)
+    res = calc.forward(batch)
     res["grad"].cpu()
     stages["model"] = lap()
     for _ in range(2):
@@ -668,11 +689,20 @@ def si_cells():
 # "envelope" is the sparse layout of an envelope-weighted model: its soft
 # sums and gather transposes run K2, and nothing else.
 NOT_K2 = ("K1", "K3", "K4", "K5a", "K5b", "K6", "K7", "K8")
+# eALIGNN's inner-cutoff weights take the soft-weight branches on every
+# layout: K2 (its sums and gather transposes), plain sums in place of K3
+# and K4, and no fused L-stage under ALIGNN_TPU_FUSED_LSTAGE.
 LAYOUT_KERNELS = {"sparse": (("K1", "K2"), ("K6", "K7", "K8")),
                   "dense": (("K3", "K4", "K5a"), ("K1", "K6", "K7", "K8")),
                   "fused": (("K3", "K6", "K7"), ("K1", "K4", "K5a", "K8")),
-                  "envelope": (("K2",), NOT_K2)}
-TRAIN_KERNELS = {"sparse": LAYOUT_KERNELS["sparse"],
+                  "envelope": (("K2",), NOT_K2),
+                  "ealignn_sparse": (("K2",), NOT_K2),
+                  "ealignn_dense": (("K2",), NOT_K2),
+                  "ealignn_fused": (("K2",), NOT_K2)}
+DENSE_LAYOUTS = ("dense", "fused", "ealignn_dense", "ealignn_fused")
+TRAIN_KERNELS = {"xff": (("K1", "K2"), ("K3", "K4", "K5a", "K5b", "K6",
+                                         "K7", "K8")),
+                 "sparse": LAYOUT_KERNELS["sparse"],
                  "envelope": LAYOUT_KERNELS["envelope"],
                  "dense": (("K3", "K4", "K5a", "K5b"),
                            ("K1", "K6", "K7", "K8")),
@@ -729,10 +759,13 @@ def run_cells(new_calc, cells, layout: str, failures: list):
             res["stress"]).all() and np.isfinite(res["energy"])
         if not finite or forces.shape != (n, 3):
             failures.append(f"{name}: non-finite or misshaped output")
-        if row["abs_sum_force"] > 1e-3:
+        # eALIGNN's forces carry the cell's atom count as a factor (a
+        # quirk of the reference), and so does their sum's rounding
+        sum_tol = 1e-3 * (n if layout.startswith("ealignn") else 1)
+        if row["abs_sum_force"] > sum_tol:
             failures.append(f"{name}: |sum F| = {row['abs_sum_force']}")
-        if layout in ("dense", "fused") and (calc._spec is None
-                                             or calc._spec.dense_D == 0):
+        if layout in DENSE_LAYOUTS and (calc._spec is None
+                                        or calc._spec.dense_D == 0):
             failures.append(f"{name}: the dense Calculator ran sparse")
         need, banned = LAYOUT_KERNELS[layout]
         if any(per_call[k] <= 0 for k in need) or \
@@ -2204,8 +2237,13 @@ CLI_KERNELS = {"sparse": (("K1", "K2"), ("K3", "K4", "K5a", "K5b", "K6",
                "dense_fused_switch": (("K3", "K4", "K5a"),
                                       ("K1", "K6", "K7", "K8")),
                "ff_si": (("K1", "K2"), ("K3", "K4", "K5a", "K5b", "K6",
-                                        "K7", "K8"))}
-BN_FED_BIASES = ("linear.bias", "src_update.bias")
+                                        "K7", "K8")),
+               "ealignn": (("K2",), NOT_K2)}
+CLI_KERNELS["x_sparse"] = CLI_KERNELS["sparse"]
+CLI_KERNELS["x_dense"] = CLI_KERNELS["dense"]
+# dst_update's bias reaches the node BatchNorm as a constant shift too:
+# the aggregation is a gate-weighted mean (but for its 1e-6 eps)
+BN_FED_BIASES = ("linear.bias", "src_update.bias", "dst_update.bias")
 
 
 def write_rocksalt_folder(root: str, n: int) -> None:
@@ -2410,12 +2448,14 @@ class StepTap:
 
 
 def cli_train(label: str, root: str, config: str, out: str, failures: list,
-              cache_from: str = None, extra=(), cpu_dtype="float32") -> dict:
+              cache_from: str = None, extra=(), cpu_dtype="float32",
+              float64_if_missed: bool = False) -> dict:
     """``cli.train.main`` on the card into `out` (a copy of `cache_from`'s
     graph cache seeded there first, if given), launches counted from 0
     over the run and over its first train step; then the trainer's step
     replayed (timed, profiled) and its first step held against the CPU
-    port."""
+    port in `cpu_dtype`, or with `float64_if_missed` in float32 and, where
+    that misses, in float64, which then decides (both recorded)."""
     import shutil
 
     import torch
@@ -2476,8 +2516,13 @@ def cli_train(label: str, root: str, config: str, out: str, failures: list,
     row["replayed_step"] = tap.replay(summary["state"])
     del summary, tap.batch, tap.model, tap.step
     torch.cuda.empty_cache()
-    row["first_step_vs_cpu"] = tap.hold_against_cpu(out, label, failures,
-                                                    cpu_dtype)
+    missed: list = []
+    row["first_step_vs_cpu"] = tap.hold_against_cpu(
+        out, label, missed if float64_if_missed else failures, cpu_dtype)
+    if missed:
+        row["float32_missed"] = missed
+        row["first_step_vs_cpu_float64"] = tap.hold_against_cpu(
+            out, label, failures, "float64")
     return row
 
 
@@ -2606,6 +2651,372 @@ def train_cli_phase(failures: list) -> tuple:
     per_step = {"sparse": rows["a_sparse"]["launches_per_train_step"],
                 "dense": rows["b_dense"]["launches_per_train_step"]}
     return rows, per_step
+
+
+FAMILIES_DIR = os.path.join(REPO, "build", "model_families")
+EALIGNN_MODEL = {"name": "ealignn_atomwise"}   # eALIGNNAtomWiseConfig()
+X_FEATURES = 6
+X_CELLS = 128       # cut from train_cli's 640 to keep the phase short
+X_RUN = {  # TrainingConfig of (x): ALIGNNConfig defaults + 6 extras
+    "batch_size": 32, "n_train": 96, "n_val": 16, "n_test": 16,
+    "epochs": 1, "learning_rate": 1e-3, "use_cache": True,
+    "num_workers": 2, "model": {"name": "alignn",
+                                "extra_features": X_FEATURES}}
+PROP_MODEL = {"name": "alignn_atomwise", "atomwise_output_features": 2,
+              "additional_output_features": 22}   # 4+4/256 by default
+
+
+def seeded(cfg: dict, seed: int = 0):
+    """A model of config dict `cfg` with weights drawn by
+    ``init_parameters`` from a CPU generator seeded `seed`."""
+    import torch
+
+    from alignn_tpu_torch.config import model_config_from_dict
+    from alignn_tpu_torch.nn.models import init_parameters
+    from alignn_tpu_torch.train.trainer import build_model
+
+    return init_parameters(build_model(model_config_from_dict(cfg)),
+                           torch.Generator().manual_seed(seed))
+
+
+def si_config() -> dict:
+    with open(os.path.join(MODEL_DIR, "config.json")) as f:
+        return json.load(f)
+
+
+def rattled_rocksalt64():
+    """The first cell of ``rocksalt_cells`` (seed 0) as a 2x2x2 supercell,
+    each atom rattled 0.03 A (numpy seed 0): 64 atoms of two elements."""
+    from alignn_tpu_torch.chem.atoms import Atoms
+    from alignn_tpu_torch.graph.build import rocksalt_cells
+
+    sc = next(iter(rocksalt_cells(1)))[0].make_supercell([2, 2, 2])
+    cart = sc.cart_coords + np.random.default_rng(0).normal(
+        0.0, 0.03, sc.cart_coords.shape)
+    return Atoms(lattice_mat=sc.lattice_mat,
+                 frac_coords=cart @ np.linalg.inv(sc.lattice_mat),
+                 elements=sc.elements)
+
+
+def ealignn_serving(failures: list) -> tuple:
+    """(e) eALIGNN at its published defaults (2+2/64, inner cutoff 4 A,
+    torque removed), seeded weights, through the Calculator with
+    docs/mlearn_r4/Si's graph on si64_rattled and si512_rattled, and on
+    a 64-atom rattled rocksalt cell: on one element every node starts
+    alike and the normalised aggregations keep them alike but for their
+    1e-6 eps, so an untrained model's Si forces are rounding noise
+    (PERF.md §6), and the two-element cell gives the checks forces to hold.
+    Sparse, dense (use_canonize: true) and dense under
+    ALIGNN_TPU_FUSED_LSTAGE=1 (the weighted model stays unfused, so its
+    results must equal the dense ones).  Sparse and dense against the port
+    on the CPU.  Counts from 0 over each layout's cells.  Returns (rows,
+    launches)."""
+    from alignn_tpu_torch.ff.calculator import Calculator
+
+    config = {**si_config(), "model": EALIGNN_MODEL}
+    canon = {**config, "use_canonize": True}
+    model, cpu_model = seeded(EALIGNN_MODEL), seeded(EALIGNN_MODEL)
+    cells = si_cells()[1:] + [("nacl64_rattled", rattled_rocksalt64())]
+    rows, launches = {}, {}
+    for layout, cfg, dense in (("ealignn_sparse", config, False),
+                               ("ealignn_dense", canon, True)):
+        reset_launches()
+        rows[layout] = run_cells(lambda: Calculator(
+            model=model, config=cfg, dense=dense), cells, layout, failures)
+        launches[layout] = read_launches()
+        check_against(rows[layout], lambda: Calculator(
+            model=cpu_model, config=cfg, dense=dense, device="cpu"),
+            "cpu_port", failures)
+    with switch_env(FUSED_ENV):
+        reset_launches()
+        rows["ealignn_fused"] = run_cells(lambda: Calculator(
+            model=model, config=canon, dense=True), cells, "ealignn_fused",
+            failures)
+        launches["ealignn_fused"] = read_launches()
+    check_results(rows["ealignn_fused"],
+                  [res for _r, _a, res in rows["ealignn_dense"]],
+                  "dense_on_card", failures)
+    return rows, launches
+
+
+def write_extra_folder(root: str, n: int) -> str:
+    """id_prop.json of ``rocksalt_cells(n)`` (seed 0): each record's atoms,
+    its energy target as total_energy and X_FEATURES extra features drawn
+    from numpy seed 1."""
+    from alignn_tpu_torch.graph.build import rocksalt_cells
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(1)
+    entries = [{"jid": f"rocksalt_{i:04d}", "atoms": atoms.to_dict(),
+                "total_energy": float(target),
+                "extra_features": rng.standard_normal(X_FEATURES).tolist()}
+               for i, (atoms, target, _f) in enumerate(rocksalt_cells(n))]
+    return write_json(os.path.join(root, "id_prop.json"), entries)
+
+
+def write_rocksalt_ff_folder(root: str, n: int) -> str:
+    """id_prop.json of n 64-atom rocksalt cells: the 2x2x2 supercells of
+    ``rocksalt_cells(n)`` (seed 0) with their energy targets as
+    total_energy and forces 0.1 N(0, 1) (numpy seed 3)."""
+    from alignn_tpu_torch.graph.build import rocksalt_cells
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(3)
+    entries = []
+    for i, (atoms, target, _f) in enumerate(rocksalt_cells(n)):
+        sc = atoms.make_supercell([2, 2, 2])
+        entries.append({"jid": f"nacl64_{i:02d}", "atoms": sc.to_dict(),
+                        "total_energy": float(target),
+                        "forces": rng.normal(0.0, 0.1, (64, 3)).tolist()})
+    return write_json(os.path.join(root, "id_prop.json"), entries)
+
+
+def extra_predict_check(out: str, root: str, failures: list) -> dict:
+    """The run's last weights (config.json and last_model.mpk copied
+    aside) through ``zoo.predict_structures`` with each test structure's
+    extra features, against Test_results.json within 1e-5 (cli.predict
+    reads structure files only, as JAX's, so it cannot pass them)."""
+    import shutil
+
+    from alignn_tpu_torch.chem.atoms import Atoms
+    from alignn_tpu_torch.zoo import load_model_dir, predict_structures
+
+    last_dir = out + "_last"
+    shutil.rmtree(last_dir, ignore_errors=True)
+    os.makedirs(last_dir)
+    for name in ("config.json", "last_model.mpk"):
+        shutil.copy(os.path.join(out, name), last_dir)
+    model, _cfg = load_model_dir(last_dir)
+    records = {e["jid"]: e for e in json.load(open(os.path.join(
+        root, "id_prop.json")))}
+    rows = json.load(open(os.path.join(out, "Test_results.json")))
+    t = time.perf_counter()
+    got = predict_structures(
+        model, [Atoms.from_dict(records[r["id"]]["atoms"]) for r in rows],
+        extra_features=[records[r["id"]]["extra_features"] for r in rows])
+    seconds = time.perf_counter() - t
+    diff = float(np.abs(got - np.asarray([r["predictions"] for r in rows]))
+                 .max())
+    if not diff <= 1e-5:
+        failures.append(f"model_families x predict: {diff} from "
+                        f"Test_results.json")
+    return {"structures": len(rows), "seconds": seconds,
+            "max_abs_diff_vs_test_results": diff}
+
+
+def xff_step(failures: list) -> tuple:
+    """(x-ff) docs/mlearn_r4/Si's model config with extra_features: 6:
+    the first train steps (2 warm-up, 4 timed) on five si64 cells of
+    train_cli's si64_40 folder (one batch of that config) with six seeded
+    features each, then the first step against the port's on the CPU.
+    Returns (row, launches per step)."""
+    import torch
+
+    from alignn_tpu_torch.chem.atoms import Atoms
+    from alignn_tpu_torch.graph.batch import BucketSpec, batch_graphs
+    from alignn_tpu_torch.graph.build import build_graph
+
+    base = si_config()
+    cfg = {**base["model"], "extra_features": X_FEATURES}
+    entries = json.load(open(os.path.join(TRAIN_CLI_DIR, "si64_40",
+                                          "id_prop.json")))[:5]
+    rng = np.random.default_rng(2)
+    graphs = []
+    for e in entries:
+        atoms = Atoms.from_dict(e["atoms"])
+        g = build_graph(atoms, cutoff=base["cutoff"],
+                        max_neighbors=base["max_neighbors"],
+                        use_canonize=base["use_canonize"])
+        g.target = np.array([e["total_energy"]])
+        g.forces = np.asarray(e["forces"])
+        g.extra_features = rng.standard_normal(X_FEATURES)
+        graphs.append(g)
+
+    def batch_on(device):
+        return batch_graphs(graphs, BucketSpec.tight_for_batch(graphs),
+                            torch.device(device), extra_width=X_FEATURES)
+
+    weights = seeded(cfg).state_dict()
+    row, first, launches = train_run(weights, batch_on("cuda"), "xff",
+                                     failures, steps=6, cfg=cfg)
+    row["first_step_vs_cpu"] = step_diff(
+        first, first_step(weights, batch_on("cpu"), cfg), "x-ff", failures)
+    return row, launches
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms inside (warn only), restored after:
+    ``index_add`` then sums in a fixed order instead of by atomics, whose
+    order, and so whose last bits, vary from call to call."""
+    import torch
+
+    previous = (torch.are_deterministic_algorithms_enabled(),
+                torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(previous[0],
+                                           warn_only=previous[1])
+
+
+def icalculator_phase(failures: list) -> tuple:
+    """(i) iCalculator: docs/mlearn_r4/Si as the force field and a seeded
+    ALIGNNAtomWise at full width (4+4/256, atomwise head 2, additional
+    head 22) saved to a model directory, on si64_rattled and
+    si512_rattled: E/F/S equal to the plain Calculator's (stress_wt 0.05)
+    bit for bit, both called under torch's deterministic algorithms (by
+    default the force sums' atomics change the last bits from call to
+    call; that difference is recorded too); charges, magmoms and the 22
+    properties within 1e-4 x their largest of the port's property model
+    on the CPU; ms per call beside the plain Calculator's.  Counts from 0
+    over one call a cell.  Returns (rows, launches per call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from alignn_tpu_torch.ff.calculator import Calculator, iCalculator
+    from alignn_tpu_torch.graph.build import build_graph
+    from alignn_tpu_torch.nn.convert import flax_from_module
+    from alignn_tpu_torch.nn.models import atomwise_forward
+    from alignn_tpu_torch.train.checkpoint import save_params
+
+    prop_dir = os.path.join(FAMILIES_DIR, "prop_model")
+    os.makedirs(prop_dir, exist_ok=True)
+    write_json(os.path.join(prop_dir, "config.json"),
+               {**si_config(), "model": PROP_MODEL})
+    save_params(os.path.join(prop_dir, "best_model.mpk"),
+                *flax_from_module(seeded(PROP_MODEL, seed=1)))
+    ic = iCalculator(ff_path=MODEL_DIR, prop_path=prop_dir)
+    plain = Calculator(path=MODEL_DIR, stress_wt=0.05)
+    cpu_prop = Calculator(path=prop_dir, device="cpu")
+
+    def timed(calc, atoms):
+        times = []
+        for i in range(7):
+            t = time.perf_counter()
+            res = calc.calculate(atoms)
+            torch.cuda.synchronize()
+            if i >= 2:
+                times.append((time.perf_counter() - t) * 1e3)
+        return res, float(np.median(times))
+
+    rows, launches = [], {}
+    for name, atoms in si_cells()[1:]:
+        n = atoms.num_atoms
+        res, ms = timed(ic, atoms)
+        pres, plain_ms = timed(plain, atoms)
+        reset_launches()
+        ic.calculate(atoms)
+        launches[name] = read_launches()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ic.calculate(atoms)
+            torch.cuda.synchronize()
+        by_name, _n_ops = device_ms_by_name(prof)
+        atomics_diff = max(float(np.abs(np.asarray(res[k]) - pres[k]).max())
+                           for k in ("energy", "forces", "stress"))
+        with deterministic():
+            res, pres = ic.calculate(atoms), plain.calculate(atoms)
+        same = all(np.array_equal(res[k], pres[k])
+                   for k in ("energy", "forces", "stress"))
+        g = build_graph(atoms, neighbor_strategy=cpu_prop.neighbor_strategy,
+                        cutoff=cpu_prop.cutoff,
+                        max_neighbors=cpu_prop.max_neighbors,
+                        use_canonize=cpu_prop.use_canonize)
+        ref = atomwise_forward(cpu_prop.model, cpu_prop.batch_for(g))
+        aw = ref["atomwise_pred"].detach().numpy()[:n]
+        props = [max(v, 0.0) if "gap" in p else v
+                 for p, v in zip(ic.props, ref["additional"].detach()
+                                 .numpy()[0])]
+        rel = {}
+        for key, got, want in (
+                ("charges", res["charges"], aw[:, 0]),
+                ("magmoms", res["magmoms"], aw[:, 1]),
+                ("props", [res[p] for p in ic.props], props)):
+            got, want = np.asarray(got), np.asarray(want)
+            rel[key] = float(np.abs(got - want).max()
+                             / max(float(np.abs(want).max()), 1e-12))
+        row = {"cell": name, "atoms": n, "ms_per_calculate": ms,
+               "plain_calculator_ms": plain_ms,
+               "device_busy_share": sum(by_name.values()) / ms,
+               "top_kernels_ms": top_kernels(by_name),
+               "efs_bitwise_equal_plain": same,
+               "efs_max_abs_diff_plain_by_default": atomics_diff,
+               "rel_diff_vs_cpu_port": rel, "props": len(ic.props),
+               "launches_per_call": launches[name]}
+        if not same:
+            failures.append(f"model_families i {name}: E/F/S differ from "
+                            f"the plain Calculator's")
+        if not (len(ic.props) == 22 and all(v <= 1e-4
+                                             for v in rel.values())):
+            failures.append(f"model_families i {name}: {rel} vs the CPU "
+                            f"port (limit 1e-4)")
+        need, banned = LAYOUT_KERNELS["sparse"]
+        counts = launches[name]
+        if any(counts[k] <= 0 for k in need) or \
+                any(counts[k] != 0 for k in banned):
+            failures.append(f"model_families i {name}: launches {counts}")
+        rows.append(row)
+    return rows, launches
+
+
+def model_families_phase(failures: list) -> tuple:
+    """The model families of this slice: (e) eALIGNN serving, (e-train)
+    eALIGNN trained through ``cli.train`` on train_cli's si64_40 folder
+    with the model block replaced by eALIGNN's defaults, one epoch; (x)
+    the ALIGNN property model at its defaults with 6 extra features on
+    128 rocksalt cells (96/16/16) in id_prop.json, one epoch sparse, then
+    one dense from its graph cache, and the sparse run's last weights
+    predicting its test set; (x-ff) the FF config with extra features;
+    (i) iCalculator.  Returns (rows, launches a call or step by run)."""
+    import shutil
+
+    import torch
+
+    shutil.rmtree(FAMILIES_DIR, ignore_errors=True)
+    os.makedirs(FAMILIES_DIR)
+    rows, launches = {}, {}
+    serving, serving_launches = ealignn_serving(failures)
+    for layout, cell_rows in serving.items():
+        rows[f"e_{layout}"] = [row for row, _a, _r in cell_rows]
+        launches[f"e_{layout}_per_call"] = \
+            cell_rows[1][0]["launches_per_call"]      # si512's
+        launches[f"e_{layout}_over_cells"] = serving_launches[layout]
+    torch.cuda.empty_cache()
+    d = FAMILIES_DIR
+    cfg_e = {**si_config(), "epochs": 1, "n_train": 32, "n_val": 4,
+             "n_test": 4, "model": EALIGNN_MODEL}
+    # si64_40's one element would leave the forces, and the gradients
+    # that flow through them, at rounding noise (see ealignn_serving)
+    e_root = os.path.join(d, "nacl64_40")
+    write_rocksalt_ff_folder(e_root, 40)
+    rows["e_train"] = cli_train(
+        "ealignn", e_root, write_json(os.path.join(d, "ealignn.json"), cfg_e),
+        os.path.join(d, "out_ealignn"), failures, float64_if_missed=True)
+    launches["e_train_per_step"] = rows["e_train"]["launches_per_train_step"]
+    torch.cuda.empty_cache()
+    root = os.path.join(d, f"rocksalt{X_CELLS}_x")
+    write_extra_folder(root, X_CELLS)
+    out_x = os.path.join(d, "out_x_sparse")
+    rows["x_sparse"] = cli_train(
+        "x_sparse", root, write_json(os.path.join(d, "x.json"), X_RUN),
+        out_x, failures)
+    rows["x_predict"] = extra_predict_check(out_x, root, failures)
+    rows["x_dense"] = cli_train(
+        "x_dense", root, write_json(os.path.join(d, "x_dense.json"),
+                                    {**X_RUN, "dense_neighborhoods": True}),
+        os.path.join(d, "out_x_dense"), failures, cache_from=out_x)
+    for layout in ("x_sparse", "x_dense"):
+        launches[f"{layout}_per_step"] = \
+            rows[layout]["launches_per_train_step"]
+    torch.cuda.empty_cache()
+    rows["x_ff"], launches["x_ff_per_step"] = xff_step(failures)
+    torch.cuda.empty_cache()
+    rows["i"], i_launches = icalculator_phase(failures)
+    for cell, counts in i_launches.items():
+        launches[f"i_{cell}_per_call"] = counts
+    return rows, launches
 
 
 KERNELS = (  # id, name, source, replaces
@@ -2833,6 +3244,16 @@ def main() -> int:
     emit({"phase": "train_cli", "part": "total",
           "seconds": time.perf_counter() - t})
 
+    # the model families: counts from 0 over each run
+    t = time.perf_counter()
+    family_rows, family_launches = model_families_phase(failures)
+    for name, row in family_rows.items():
+        emit({"phase": "model_families", "part": name, "rows": row}
+             if isinstance(row, list) else
+             {"phase": "model_families", "part": name, **row})
+    emit({"phase": "model_families", "part": "total",
+          "seconds": time.perf_counter() - t})
+
     line = []
     for key, name, source, replaces in KERNELS:
         r = kernels.get(key)
@@ -2869,6 +3290,8 @@ def main() -> int:
             "launches_per_property_train_step": {
                 layout: per_step[key]
                 for layout, per_step in property_launches.items()},
+            "launches_model_families": {
+                run: counts[key] for run, counts in family_launches.items()},
             "max_abs_err": f32["max_abs_err"], "rel_err": f32["rel_err"],
             "tol_rel": f32["tol_rel"],
             "ms": f32["ms"], "kernel_ms": f32["ms"],

@@ -9,7 +9,9 @@ CPU, sparse, envelope-weighted, dense and fused dense; the property
 model's masked BatchNorm and its train step likewise; then the on-device
 MD and FIRE loops captured as CUDA graphs against the same loops run
 eagerly, and one captured graph across two chunks whose segments need
-different work-item counts.
+different work-item counts; last the model families: eALIGNN served
+sparse and dense, the train steps of the extra-features heads and of
+eALIGNN, and iCalculator.
 
 Every test here is marked ``cuda`` and skips on a host without a GPU.
 This file imports torch and numpy only (the card's host has no JAX), so
@@ -18,6 +20,7 @@ on the card run it without the JAX test configuration:
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 """
 
+import json
 import os
 
 import numpy as np
@@ -927,3 +930,143 @@ def test_batch_relax_captured_matches_eager(cuda):
                                    atol=1e-5)
     np.testing.assert_allclose(ea, eb, rtol=0, atol=1e-5)
     assert (fa < np.array([np.inf])).all()
+
+
+def _seeded(cfg: dict, seed: int = 0):
+    from alignn_tpu_torch.config import model_config_from_dict
+    from alignn_tpu_torch.nn.models import init_parameters
+    from alignn_tpu_torch.train.trainer import build_model
+
+    return init_parameters(build_model(model_config_from_dict(cfg)),
+                           torch.Generator().manual_seed(seed))
+
+
+EALIGNN_SMALL = {"name": "ealignn_atomwise", "alignn_layers": 1,
+                 "gcn_layers": 1, "hidden_features": 64,
+                 "embedding_features": 32, "inner_cutoff": 3.0}
+
+
+@pytest.mark.parametrize("dense", [True, False], ids=["dense", "sparse"])
+def test_ealignn_calculator_cuda_matches_cpu(cuda, dense):
+    """A seeded 1+1/64 eALIGNN (inner cutoff 3 A, torque removed) on
+    rattled Si through docs/mlearn_r4/Si's graph (use_canonize: true, so
+    that it qualifies for the dense layout): the card matches the port on
+    the CPU at the serving limits; its soft weights run K2 and never K1,
+    K3 or K4."""
+    from alignn_tpu_torch.ff.calculator import Calculator
+
+    with open(os.path.join(REPO, "docs", "mlearn_r4", "Si",
+                           "config.json")) as f:
+        config = {**json.load(f), "use_canonize": True,
+                  "model": EALIGNN_SMALL}
+    atoms = _rattled_si(1, rattle=0.05)
+    counters = (ek.gated_aggregate_cuda, ek.sorted_segment_sum_cuda,
+                dk.dense_gated_aggregate_cuda, dk.dense_pair_aggregate_cuda)
+    before = [c.launches for c in counters]
+    calc = Calculator(model=_seeded(EALIGNN_SMALL), config=config,
+                      dense=dense)
+    gpu = calc.calculate(atoms)
+    launches = [c.launches - b for c, b in zip(counters, before)]
+    assert bool(calc._spec.dense_D) == dense
+    assert launches[1] > 0 and launches[0] == launches[2] == \
+        launches[3] == 0, launches
+    cpu = Calculator(model=_seeded(EALIGNN_SMALL), config=config,
+                     dense=dense, device="cpu").calculate(atoms)
+    assert abs(gpu["energy"] - cpu["energy"]) / 8 < 1e-4
+    np.testing.assert_allclose(gpu["forces"], cpu["forces"], atol=5e-4)
+    np.testing.assert_allclose(gpu["stress"], cpu["stress"], atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["alignn", "alignn_atomwise",
+                                  "ealignn_atomwise"])
+def test_family_train_step_cuda_matches_cpu(cuda, name):
+    """One AdamW step on 8 rocksalt cells (sparse), the card against the
+    port on the CPU in float64 from the same seeded weights: ALIGNN with
+    3 extra features a structure, ALIGNNAtomWise with them (E/F/S loss),
+    eALIGNN (E/F/S loss, torque removed).  Loss to rtol 1e-4, every
+    gradient within 1e-3 x its max|grad| + 1e-7 (a bias feeding a
+    BatchNorm at the model's largest).  The extra features' BatchNorm
+    normalises over the graphs: over 4 of them float32 rounding alone
+    puts ``extra_feature_embedding.linear.weight``'s gradient at 0.65 of
+    its limit on the CPU, over 8 at 0.07."""
+    from alignn_tpu_torch.graph.batch import BucketSpec, batch_graphs
+    from alignn_tpu_torch.graph.build import rocksalt_graphs
+    from alignn_tpu_torch.train.optim import build_optimizer
+    from alignn_tpu_torch.train.state import (create_train_state,
+                                              make_train_step)
+
+    graphs = rocksalt_graphs(8, rattle=0.05)
+    rng = np.random.default_rng(2)
+    for g in graphs:
+        g.extra_features = rng.standard_normal(3)
+    cfg = {"name": name, "alignn_layers": 1, "gcn_layers": 1,
+           "hidden_features": 128, "embedding_features": 32,
+           "stresswise_weight": 0.1}
+    cfg.update({"inner_cutoff": 2.5} if name == "ealignn_atomwise"
+               else {"extra_features": 3})
+    out = {}
+    for dev, dtype in ((torch.device("cpu"), torch.float64),
+                       (cuda, torch.float32)):
+        batch = batch_graphs(graphs, BucketSpec.tight_for_batch(graphs), dev,
+                             dtype=dtype,
+                             extra_width=cfg.get("extra_features", 0))
+        model = _seeded(cfg).to(dtype)
+        state = create_train_state(model, batch, build_optimizer(
+            "adamw", 1e-3, 1e-5, model=model))
+        _state, losses = make_train_step(model, "l1")(state, batch)
+        out[dev.type] = (float(losses["loss"]),
+                         {n: p.grad.cpu().double() for n, p in
+                          model.named_parameters()})
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    top = max(float(g.abs().max()) for g in gc.values())
+    for n, ref in gc.items():
+        bn_fed = name == "alignn" and n.endswith(
+            ("linear.bias", "src_update.bias", "dst_update.bias"))
+        scale = top if bn_fed else float(ref.abs().max())
+        diff = float((gg[n] - ref).abs().max())
+        assert diff <= 1e-3 * scale + 1e-7, (n, diff)
+
+
+def test_icalculator_cuda_matches_cpu(cuda, tmp_path):
+    """iCalculator with docs/mlearn_r4/Si as the force field and a seeded
+    1+1/64 ALIGNNAtomWise (atomwise head 2, additional head 22) loaded
+    from a model directory: on the card E/F/S equal the plain
+    Calculator's bit for bit (both under torch's deterministic
+    algorithms: by default ``index_add``'s atomics change the last bits
+    from call to call), and charges, magmoms and the 22 properties are
+    within 1e-4 x their scale of the CPU's."""
+    from alignn_tpu_torch.ff.calculator import Calculator, iCalculator
+    from alignn_tpu_torch.nn.convert import flax_from_module
+    from alignn_tpu_torch.train.checkpoint import save_params
+
+    prop_cfg = {"name": "alignn_atomwise", "alignn_layers": 1,
+                "gcn_layers": 1, "hidden_features": 64,
+                "embedding_features": 32, "atomwise_output_features": 2,
+                "additional_output_features": 22}
+    ff = os.path.join(REPO, "docs", "mlearn_r4", "Si")
+    with open(os.path.join(ff, "config.json")) as f:
+        config = {**json.load(f), "model": prop_cfg}
+    with open(tmp_path / "config.json", "w") as f:
+        json.dump(config, f)
+    save_params(str(tmp_path / "best_model.mpk"),
+                *flax_from_module(_seeded(prop_cfg)))
+    atoms = _rattled_si(1, rattle=0.05)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        ic = iCalculator(ff_path=ff, prop_path=str(tmp_path), device=dev)
+        res[dev] = ic.calculate(atoms)
+        if dev == "cuda":
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                got = ic.calculate(atoms)
+                plain = Calculator(path=ff, stress_wt=0.05).calculate(atoms)
+            finally:
+                torch.use_deterministic_algorithms(False)
+            for key in ("energy", "forces", "stress"):
+                np.testing.assert_array_equal(got[key], plain[key])
+    for key in ("charges", "magmoms", *ic.props):
+        got, ref = np.asarray(res["cuda"][key]), np.asarray(res["cpu"][key])
+        np.testing.assert_allclose(got, ref, rtol=0,
+                                   atol=1e-4 * (np.abs(ref).max() + 1e-6),
+                                   err_msg=key)

@@ -111,8 +111,11 @@ def test_records_to_graphs_match_jax(numpy_neighbors):
                 assert getattr(j, k) is None, k
             else:
                 np.testing.assert_array_equal(v, getattr(j, k), err_msg=k)
-    with pytest.raises(NotImplementedError, match="extra_features"):
-        td.records_to_graphs([{**kept[0], "extra_features": [1.0]}])
+    # a record's extra features ride its graph, as in JAX
+    rec = {**kept[0], "extra_features": [1.0, -2.5]}
+    (g,), (j,) = td.records_to_graphs([rec]), jd.records_to_graphs([rec])
+    np.testing.assert_array_equal(g.extra_features, j.extra_features)
+    assert g.extra_features.dtype == j.extra_features.dtype
 
 
 def test_dataset_scaling_and_mad_match_jax():

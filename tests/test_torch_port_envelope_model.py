@@ -374,11 +374,18 @@ def test_dense_calculator_refuses_an_envelope_potential():
 
 
 def test_extra_features_still_refused():
+    """``extra_features`` is ported (tests/test_torch_port_families.py
+    holds it against JAX): the model builds JAX's head (no ``fc``; an
+    ``extra_feature_embedding`` MLP, ``fc1``, ``fc2`` and ``fc3``), and
+    what the port still refuses is the two unported switches."""
     from alignn_tpu_torch.nn.models import (ALIGNNAtomWise,
                                             ALIGNNAtomWiseConfig)
 
-    with pytest.raises(NotImplementedError, match="extra_features"):
-        ALIGNNAtomWise(ALIGNNAtomWiseConfig(extra_features=4))
+    model = ALIGNNAtomWise(ALIGNNAtomWiseConfig(extra_features=4))
+    assert not hasattr(model, "fc")
+    assert model.fc3.in_features == 256 + 4
+    with pytest.raises(NotImplementedError, match="remat_layers"):
+        ALIGNNAtomWise(ALIGNNAtomWiseConfig(remat_layers=True))
 
 
 # ---------------------------------------------------------------------------
