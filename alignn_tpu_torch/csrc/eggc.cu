@@ -22,7 +22,7 @@
 // third of all rows; cutting it keeps every block's walk short, so the
 // whole card streams the input instead of one SM.
 //  - Pass 1, one block per (item, feature chunk): lanes cover the feature
-//    axis with 16-byte loads (4 x f32 or 8 x bf16), neighbouring lanes on
+//    axis with 16-byte loads (4 x f32 or 8 x bf16/f16), neighbouring lanes on
 //    neighbouring addresses; row groups of lanes stride over the item's
 //    rows (loop unrolled so that several rows' loads are in flight);
 //    sigmoid(m) lives in registers only; the row groups' f32 partials
@@ -36,12 +36,14 @@
 // the MXU, TE-aligned DMA bases) is not carried over.
 //
 // Plain C entry points (loaded with ctypes); each returns the
-// cudaGetLastError() of its launches.  dtype: 0 = float32, 1 = bfloat16.
+// cudaGetLastError() of its launches.  dtype: 0 = float32, 1 = bfloat16,
+// 2 = float16 (both 16-bit types summed in f32).
 // `ld_*` are row strides in elements; the feature axis must be unit-stride.
 // `partial` is f32 scratch of num_items*F floats (K2) or 2*num_items*F
 // (K1), allocated by the caller.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -56,6 +58,25 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
+
+// Two packed 16-bit elements (bf16 or f16) -> two f32 values.
+__device__ __forceinline__ float2 to_float2(__nv_bfloat162 x) {
+  return __bfloat1622float2(x);
+}
+__device__ __forceinline__ float2 to_float2(__half2 x) {
+  return __half22float2(x);
+}
+template <typename T>
+struct Packed2;
+template <>
+struct Packed2<__nv_bfloat16> {
+  using type = __nv_bfloat162;
+};
+template <>
+struct Packed2<__half> {
+  using type = __half2;
+};
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -64,6 +85,10 @@ __device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // VEC consecutive elements at p -> f32 registers (one 16-byte load when
@@ -80,12 +105,12 @@ __device__ __forceinline__ void load_vec(const T* __restrict__ p, float* v) {
     v[2] = q.z;
     v[3] = q.w;
   } else {
-    static_assert(VEC == 8, "bf16 vectors are 8 wide");
+    static_assert(VEC == 8, "bf16 and f16 vectors are 8 wide");
     const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
+    const auto* h = reinterpret_cast<const typename Packed2<T>::type*>(&q);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
+      const float2 f = to_float2(h[i]);
       v[2 * i] = f.x;
       v[2 * i + 1] = f.y;
     }
@@ -254,6 +279,9 @@ extern "C" int alignn_eggc_gated_aggregate(
   if (dtype == 1)
     return reduce<__nv_bfloat16, true>(m, ld_m, bh, ld_bh, rows, num_items,
                                        ptr, part, out, n, f, st);
+  if (dtype == 2)
+    return reduce<__half, true>(m, ld_m, bh, ld_bh, rows, num_items, ptr,
+                                part, out, n, f, st);
   return cudaErrorInvalidValue;
 }
 
@@ -273,5 +301,8 @@ extern "C" int alignn_sorted_segment_sum(const void* x, long long ld_x,
   if (dtype == 1)
     return reduce<__nv_bfloat16, false>(x, ld_x, nullptr, 0, rows, num_items,
                                         ptr, part, out, n, f, st);
+  if (dtype == 2)
+    return reduce<__half, false>(x, ld_x, nullptr, 0, rows, num_items, ptr,
+                                 part, out, n, f, st);
   return cudaErrorInvalidValue;
 }

@@ -31,7 +31,8 @@
 //
 // Design against that bound:
 //  - Every product runs on the tensor cores with mma.sync (m16n8k8 TF32
-//    for f32 operands, three per product by the split; m16n8k16 bf16).
+//    for f32 operands, three per product by the split; m16n8k16 bf16 or
+//    f16).
 //    mma.sync and not wgmma: the epilogues (h's sums over s, LayerNorm per
 //    row, the aggregation and LayerNorm backward) read the product's tile
 //    by row and by t-group from shared memory, and a 64-row tile of wgmma
@@ -76,7 +77,8 @@
 // cudaGetLastError() of its launches, kErrTile (-2) when a t-group of D rows
 // exceeds the 64-row tile, or kErrSmem (-1) when a block would need more
 // than 232,448 bytes of shared memory.  alignn_fused_lstage_bwd_scratch gives
-// the f32 scratch K7 needs, in floats.  dtype: 0 = float32, 1 = bfloat16; F
+// the f32 scratch K7 needs, in floats.  dtype: 0 = float32, 1 = bfloat16,
+// 2 = float16 (handled as bf16 is, with f16 products); F
 // is 128 or 256.  sg, dg, bh, de and dh take any row stride (`ld_*`, in
 // elements) with a unit-stride feature axis; z too, with its base and row
 // stride multiples of 16 bytes (it is staged by cp.async); w and wt ([F, F],
@@ -84,6 +86,7 @@
 // outputs are contiguous.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -118,6 +121,8 @@ template <>
 struct Tr<__nv_bfloat16> {
   static constexpr int kStages = 3, kPad = 8, kMsPad = 8;
 };
+template <>
+struct Tr<__half> : Tr<__nv_bfloat16> {};
 
 template <typename T, int F>
 struct Layout {
@@ -150,6 +155,7 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -158,6 +164,10 @@ __device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // x rounded to T and widened back (dm2 "cast to z's dtype").
@@ -270,28 +280,51 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// One m16n8k16 product of 16-bit operands T (bf16 or f16), f32 sums.
+template <typename T>
+__device__ __forceinline__ void mma_16(float (&c)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  if constexpr (std::is_same<T, __half>::value)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
+          "r"(b[1]));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
+          "r"(b[1]));
 }
 
+// Two f32 values rounded to the 16-bit type T, a in the low half.
+template <typename T>
 __device__ __forceinline__ uint32_t pack2(float a, float b) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);   // a in the low half
-  return *reinterpret_cast<const uint32_t*>(&v);
+  if constexpr (std::is_same<T, __half>::value) {
+    const __half2 v = __floats2half2_rn(a, b);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  } else {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
 }
 __device__ __forceinline__ uint32_t pack2(__nv_bfloat16 a, __nv_bfloat16 b) {
   return static_cast<uint32_t>(__bfloat16_as_ushort(a)) |
          (static_cast<uint32_t>(__bfloat16_as_ushort(b)) << 16);
 }
+__device__ __forceinline__ uint32_t pack2(__half a, __half b) {
+  return static_cast<uint32_t>(__half_as_ushort(a)) |
+         (static_cast<uint32_t>(__half_as_ushort(b)) << 16);
+}
 
 // An operand X(r, k) in shared memory, r the row of the product's A (m) or
-// the column of its B (n), k the depth: elem() for TF32, pair() = the bf16
-// pair (X(r, k), X(r, k + 1)) for bf16 (k even).
-template <typename T>
+// the column of its B (n), k the depth: elem() for TF32, pair() = the
+// 16-bit pair (X(r, k), X(r, k + 1)) for a product in the 16-bit type Op
+// (k even).  Stored f32 values (dm2_c) are packed to Op.
+template <typename T, typename Op = T>
 struct RowMajor {   // X(r, k) = p[r * ld + k]
   const T* p;
   int ld;
@@ -301,7 +334,7 @@ struct RowMajor {   // X(r, k) = p[r * ld + k]
   __device__ __forceinline__ uint32_t pair(int r, int k) const {
     if constexpr (std::is_same<T, float>::value) {
       const float2 v = *reinterpret_cast<const float2*>(p + r * ld + k);
-      return pack2(v.x, v.y);   // dm2_c: already a bf16 value, exact
+      return pack2<Op>(v.x, v.y);   // dm2_c: already an Op value, exact
     } else {
       return *reinterpret_cast<const uint32_t*>(p + r * ld + k);
     }
@@ -371,7 +404,7 @@ __device__ __forceinline__ void mma_slice(const AX& A, const BX& B,
       const int n = c0 + ni * 8 + g;
       const uint32_t b[2] = {B.pair(n, 2 * t), B.pair(n, 2 * t + 8)};
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) mma_bf16(acc[mi][ni], a[mi], b);
+      for (int mi = 0; mi < 2; ++mi) mma_16<T>(acc[mi][ni], a[mi], b);
     }
   }
 }
@@ -757,7 +790,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                       s * kK);
       },
       [&](int s, int stage) {
-        mma_slice<T, F>(RowMajor<float>{ms + s * kK, L::kMs},
+        mma_slice<T, F>(RowMajor<float, T>{ms + s * kK, L::kMs},
                         RowMajor<T>{bs + stage * F * L::kSt, L::kSt}, acc,
                         wm, wn, lane);
       });
@@ -1007,6 +1040,7 @@ extern "C" int alignn_fused_lstage_fwd(
                   bias, ld_z,  ld_sg, ld_dg, ld_bh, e_new, h};
   if (dtype == 0) return fwd_f<float>(a, n, D, f, st);
   if (dtype == 1) return fwd_f<__nv_bfloat16>(a, n, D, f, st);
+  if (dtype == 2) return fwd_f<__half>(a, n, D, f, st);
   return cudaErrorInvalidValue;
 }
 
@@ -1031,6 +1065,7 @@ extern "C" int alignn_fused_lstage_bwd(
   float* s = static_cast<float*>(scratch);
   if (dtype == 0) return bwd_f<float>(a, s, n, D, f, st);
   if (dtype == 1) return bwd_f<__nv_bfloat16>(a, s, n, D, f, st);
+  if (dtype == 2) return bwd_f<__half>(a, s, n, D, f, st);
   return cudaErrorInvalidValue;
 }
 

@@ -25,7 +25,7 @@ The parameter tree is flat, as JAX's: ``atom_embedding``,
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
@@ -33,7 +33,7 @@ from torch import nn
 from alignn_tpu_torch.graph.batch import GraphBatch
 from alignn_tpu_torch.nn.models import (EV_A3_TO_GPA, _Embeddings, _Trunk,
                                         add_atomwise_heads, atomwise_heads,
-                                        compute_cartesian_r, refuse_unported)
+                                        compute_cartesian_r)
 from alignn_tpu_torch.ops.basis import bond_cosines, bond_cosines_dense
 from alignn_tpu_torch.ops.segment import segment_sum
 
@@ -119,18 +119,24 @@ class eALIGNNAtomWise(nn.Module):
     recomputes the bond vectors from `frac_coords` (default the batch's)
     unless `r` is given, and returns the dict of
     :func:`~alignn_tpu_torch.nn.models.atomwise_heads` with ``r`` and
-    ``keep`` besides."""
+    ``keep`` besides.  `dtype` is the compute dtype of the embeddings and
+    the trunk, as in :class:`~alignn_tpu_torch.nn.models.ALIGNNAtomWise`;
+    the weighted sums stay f32 whatever it is, as in JAX.  JAX's eALIGNN
+    has no per-layer remat, and neither has this one."""
 
-    def __init__(self, cfg: eALIGNNAtomWiseConfig):
+    def __init__(self, cfg: eALIGNNAtomWiseConfig,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        refuse_unported(cfg)
         self.cfg = cfg
-        for part in (_Embeddings(cfg), _Trunk(cfg)):
+        self.dtype = dtype
+        for part in (_Embeddings(cfg, dtype=dtype), _Trunk(cfg, dtype=dtype)):
             for name, module in part.named_children():
                 setattr(self, name, module)
         self.alignn_layers = cfg.alignn_layers
         self.gcn_layers = cfg.gcn_layers
-        add_atomwise_heads(self, cfg, fc_out=cfg.output_features)
+        self.remat = False
+        add_atomwise_heads(self, cfg, fc_out=cfg.output_features,
+                           dtype=dtype)
 
     def forward(self, batch: GraphBatch, frac_coords=None, r=None):
         cfg = self.cfg

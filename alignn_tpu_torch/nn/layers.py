@@ -23,11 +23,33 @@ from alignn_tpu_torch.ops.dense import (dense_gated_aggregate,
 from alignn_tpu_torch.ops.eggc import (gated_aggregate, gather_nodes,
                                        permute_rows, sorted_gather,
                                        weighted_aggregate)
+from alignn_tpu_torch.ops.fp8 import fp8_ltables_enabled, fp8_round_trip
 from alignn_tpu_torch.ops.fused_lstage import fused_pair_lstage
 
-# flax's Dense: y = x @ kernel + bias with torch's default init, which is
-# exactly nn.Linear (the checkpoint converter transposes the kernel)
-Dense = nn.Linear
+
+class Dense(nn.Linear):
+    """flax's Dense: y = x @ kernel + bias with torch's default init,
+    which is ``nn.Linear``'s (the checkpoint converter transposes the
+    kernel).
+
+    `dtype` is the compute dtype, as in JAX: x and the kernel are cast to
+    it, the product comes out in it (f32 accumulation) and the bias, cast
+    to it, is added after.  With ``dtype=None`` the operands promote as
+    ``jnp.dot`` promotes them: a bf16 input against the f32 kernel
+    computes in f32 (the output heads).  The parameters stay f32.
+    """
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True, dtype: Optional[torch.dtype] = None):
+        super().__init__(in_features, out_features, bias)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        if dt == self.weight.dtype:
+            return F.linear(x.to(dt), self.weight, self.bias)
+        y = F.linear(x.to(dt), self.weight.to(dt))
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 class MaskedLayerNorm(nn.Module):
@@ -64,6 +86,8 @@ class MaskedBatchNorm(nn.Module):
     forward.  In eval the running statistics normalise.  Statistics and
     affine run in at least f32; the output keeps the input dtype.
     ``nn.BatchNorm1d`` would count the padded rows and the trash slot.
+    With ``update_stats`` False (a layer's recompute under
+    ``remat_layers``) the running statistics stay where they are.
     """
 
     def __init__(self, features: int, momentum: float = 0.1,
@@ -75,6 +99,7 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features))
         self.momentum = momentum
         self.epsilon = epsilon
+        self.update_stats = True
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 train: Optional[bool] = None) -> torch.Tensor:
@@ -89,11 +114,12 @@ class MaskedBatchNorm(nn.Module):
             mean = (xf * w[:, None]).sum(dim=0) / cnt
             var = torch.clamp_min(
                 ((xf * xf) * w[:, None]).sum(dim=0) / cnt - mean * mean, 0.0)
-            with torch.no_grad():
-                m = self.momentum
-                unbiased = var * cnt / torch.clamp_min(cnt - 1.0, 1.0)
-                self.mean.copy_((1 - m) * self.mean + m * mean.float())
-                self.var.copy_((1 - m) * self.var + m * unbiased.float())
+            if self.update_stats:
+                with torch.no_grad():
+                    m = self.momentum
+                    unbiased = var * cnt / torch.clamp_min(cnt - 1.0, 1.0)
+                    self.mean.copy_((1 - m) * self.mean + m * mean.float())
+                    self.var.copy_((1 - m) * self.var + m * unbiased.float())
         y = (xf - mean) * torch.rsqrt(var + self.epsilon)
         return (y * self.weight + self.bias).to(x.dtype)
 
@@ -117,12 +143,14 @@ class RBFExpansion(nn.Module):
 
 
 class MLPLayer(nn.Module):
-    """Linear -> LayerNorm or masked BatchNorm -> SiLU."""
+    """Linear (compute dtype `dtype`) -> LayerNorm or masked BatchNorm ->
+    SiLU."""
 
     def __init__(self, in_features: int, features: int,
-                 norm: str = "layernorm"):
+                 norm: str = "layernorm",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.linear = Dense(in_features, features)
+        self.linear = Dense(in_features, features, dtype=dtype)
         self.norm = NORMS[norm](features)
 
     def forward(self, x: torch.Tensor,
@@ -173,17 +201,24 @@ class EdgeGatedGraphConv(nn.Module):
     BatchNorms: the node tail's statistics count the rows of
     `node_mask`, the edge tail's those of `edge_mask` (on the L-stage the
     nodes are g's edges and the edges its angle pairs).
+
+    `dtype` is the five Dense layers' compute dtype (JAX's ``dtype``):
+    with bf16 or f16 the gates and tables are in it, the kernels sum in
+    f32, the norms' statistics are f32, and a soft-weighted sum comes out
+    in f32 (the weights are f32), which promotes the residual stream as
+    in JAX.
     """
 
     def __init__(self, features: int, norm: str = "layernorm",
-                 soft_eps: float = 1e-6):
+                 soft_eps: float = 1e-6,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.features = features
         self.norm = norm
         self.soft_eps = soft_eps
         for name in ("src_gate", "dst_gate", "edge_gate", "src_update",
                      "dst_update"):
-            setattr(self, name, Dense(features, features))
+            setattr(self, name, Dense(features, features, dtype=dtype))
         self.norm_nodes = NORMS[norm](features)
         self.norm_edges = NORMS[norm](features)
 
@@ -271,7 +306,10 @@ class EdgeGatedGraphConv(nn.Module):
         (plain sums, as in JAX).  With ``ALIGNN_TPU_FUSED_LSTAGE`` set (the
         JAX package's own switch, read per call as JAX reads it) a
         LayerNorm stage without weights runs fused instead; a BatchNorm or
-        weighted stage stays here, as in JAX.
+        weighted stage stays here, as in JAX.  With
+        ``ALIGNN_TPU_FP8_LTABLES`` set the edge output (the [L, F] stream
+        into the next layer) goes through the e4m3 round trip here, not on
+        the fused path, as in JAX.
         """
         if self.norm == "layernorm" and lg_weight is None and \
                 os.environ.get("ALIGNN_TPU_FUSED_LSTAGE"):
@@ -293,6 +331,8 @@ class EdgeGatedGraphConv(nn.Module):
         x_new = x + F.silu(self.norm_nodes(self.src_update(x) + h,
                                            dense.edge_mask))
         e_new = e + F.silu(self.norm_edges(m2, dense.lg_mask))
+        if fp8_ltables_enabled():
+            e_new = fp8_round_trip(e_new)
         return x_new, e_new
 
     def _fused_pair_stage(self, x, e, dense: DenseWiring):
@@ -317,13 +357,17 @@ class EdgeGatedGraphConv(nn.Module):
 
 
 class ALIGNNConv(nn.Module):
-    """One ALIGNN layer: EGGC on g, then EGGC on L(g)."""
+    """One ALIGNN layer: EGGC on g, then EGGC on L(g).  On the sparse
+    layout with ``ALIGNN_TPU_FP8_LTABLES`` set the [L, F] output z goes
+    through the e4m3 round trip (the dense layout's twin is in
+    :meth:`EdgeGatedGraphConv.pair_stage`)."""
 
     def __init__(self, features: int, norm: str = "layernorm",
-                 soft_eps: float = 1e-6):
+                 soft_eps: float = 1e-6,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.node_update = EdgeGatedGraphConv(features, norm, soft_eps)
-        self.edge_update = EdgeGatedGraphConv(features, norm, soft_eps)
+        self.node_update = EdgeGatedGraphConv(features, norm, soft_eps, dtype)
+        self.edge_update = EdgeGatedGraphConv(features, norm, soft_eps, dtype)
 
     def forward(self, x, y, z, g: Incidence, lg: Optional[Incidence],
                 dense: Optional[DenseWiring] = None,
@@ -349,4 +393,6 @@ class ALIGNNConv(nn.Module):
         y, z = self.edge_update(m, z, lg, windows=lg_windows,
                                 edge_weight=lg_weight,
                                 node_mask=edge_mask, edge_mask=lg_mask)
+        if fp8_ltables_enabled():
+            z = fp8_round_trip(z)
         return x, y, z

@@ -21,11 +21,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import os
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from alignn_tpu_torch.graph.batch import GraphBatch
 from alignn_tpu_torch.nn.layers import (ALIGNNConv, Dense, DenseWiring,
@@ -123,21 +123,6 @@ class ALIGNNAtomWiseConfig:
         return cls(**{k: v for k, v in d.items() if k in known})
 
 
-def refuse_unported(cfg):
-    """Raise for the two opt-in switches of the JAX package that the port
-    does not have yet: ``remat_layers`` (JAX recomputes each layer in the
-    backward) and ``ALIGNN_TPU_FP8_LTABLES`` (JAX rounds the L-sized
-    tables through e4m3, so its values differ)."""
-    if getattr(cfg, "remat_layers", False):
-        raise NotImplementedError(
-            'remat_layers is not ported yet (ROADMAP.md §1 "Remaining '
-            'modules")')
-    if os.environ.get("ALIGNN_TPU_FP8_LTABLES", "") not in ("", "0"):
-        raise NotImplementedError(
-            'ALIGNN_TPU_FP8_LTABLES is not ported yet (ROADMAP.md §1 '
-            '"Remaining modules"); unset it to build a model')
-
-
 def _link_init_bias(link: str):
     """The output bias a link function starts from (None: the default
     draw): log(0.7) for the log link, the reference's average band gap."""
@@ -167,19 +152,22 @@ def _apply_link(out: torch.Tensor, link: str) -> torch.Tensor:
 
 class _Embeddings(nn.Module):
     """Atom / bond / angle embedding stack; BatchNorm statistics count the
-    node, edge and line-graph masks' rows."""
+    node, edge and line-graph masks' rows.  `dtype` is the MLPs' compute
+    dtype (the RBF expansions stay f32)."""
 
-    def __init__(self, cfg, norm: str = "layernorm"):
+    def __init__(self, cfg, norm: str = "layernorm",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         hid, emb = cfg.hidden_features, cfg.embedding_features
-        self.atom_embedding = MLPLayer(cfg.atom_input_features, hid, norm)
+        kw = dict(norm=norm, dtype=dtype)
+        self.atom_embedding = MLPLayer(cfg.atom_input_features, hid, **kw)
         self.edge_rbf = RBFExpansion(0.0, 8.0, cfg.edge_input_features)
-        self.edge_embedding_0 = MLPLayer(cfg.edge_input_features, emb, norm)
-        self.edge_embedding_1 = MLPLayer(emb, hid, norm)
+        self.edge_embedding_0 = MLPLayer(cfg.edge_input_features, emb, **kw)
+        self.edge_embedding_1 = MLPLayer(emb, hid, **kw)
         self.angle_rbf = RBFExpansion(-1.0, 1.0, cfg.triplet_input_features)
         self.angle_embedding_0 = MLPLayer(cfg.triplet_input_features, emb,
-                                          norm)
-        self.angle_embedding_1 = MLPLayer(emb, hid, norm)
+                                          **kw)
+        self.angle_embedding_1 = MLPLayer(emb, hid, **kw)
 
     def forward(self, batch: GraphBatch, bondlength, cosines,
                 edge_scale=None):
@@ -196,20 +184,23 @@ class _Embeddings(nn.Module):
 class _Trunk(nn.Module):
     """ALIGNN conv stack + GCN stack.  Soft aggregation weights divide by
     their sum plus 1e-3 in an envelope-weighted model and 1e-6 otherwise
-    (eALIGNN's inner-cutoff masks), as in JAX."""
+    (eALIGNN's inner-cutoff masks), as in JAX.  With ``remat_layers``
+    each layer runs under :func:`remat` (JAX's per-layer ``nn.remat``)."""
 
-    def __init__(self, cfg, norm: str = "layernorm"):
+    def __init__(self, cfg, norm: str = "layernorm",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.alignn_layers = cfg.alignn_layers
         self.gcn_layers = cfg.gcn_layers
+        self.remat = bool(getattr(cfg, "remat_layers", False))
         eps = SOFT_AGG_EPS if getattr(cfg, "envelope_edge_weights", False) \
             else 1e-6
         for i in range(cfg.alignn_layers):
             setattr(self, f"alignn_layers_{i}",
-                    ALIGNNConv(cfg.hidden_features, norm, eps))
+                    ALIGNNConv(cfg.hidden_features, norm, eps, dtype))
         for i in range(cfg.gcn_layers):
             setattr(self, f"gcn_layers_{i}",
-                    EdgeGatedGraphConv(cfg.hidden_features, norm, eps))
+                    EdgeGatedGraphConv(cfg.hidden_features, norm, eps, dtype))
 
     def forward(self, batch: GraphBatch, x, y, z, edge_weight=None,
                 lg_weight=None, edge_mask=None, lg_mask=None):
@@ -228,27 +219,60 @@ class _Trunk(nn.Module):
         else:
             wins = lg_wins = (0, 0, 0)
         masks = (batch.node_mask, edge_mask, lg_mask)
+        run = remat if self.remat else _call
         for i in range(self.alignn_layers):
-            x, y, z = getattr(self, f"alignn_layers_{i}")(
-                x, y, z, batch.g_index, batch.lg_index, dense, wins, lg_wins,
-                edge_weight, lg_weight, masks)
+            x, y, z = run(getattr(self, f"alignn_layers_{i}"),
+                          x, y, z, batch.g_index, batch.lg_index, dense, wins,
+                          lg_wins, edge_weight, lg_weight, masks)
         for i in range(self.gcn_layers):
-            x, y = getattr(self, f"gcn_layers_{i}")(
-                x, y, batch.g_index, dense, wins, edge_weight,
-                batch.node_mask, edge_mask)
+            x, y = run(getattr(self, f"gcn_layers_{i}"),
+                       x, y, batch.g_index, dense, wins, edge_weight,
+                       batch.node_mask, edge_mask)
         return x, y
 
 
-def add_extra_features_head(model: nn.Module, cfg, norm: str):
+def _call(layer: nn.Module, *args):
+    return layer(*args)
+
+
+def remat(layer: nn.Module, *args):
+    """``layer(*args)`` keeping only its inputs for the backward, which
+    runs the layer again (JAX's ``nn.remat`` per layer, as
+    ``torch.utils.checkpoint`` without reentry, so the force loss's
+    gradient of a gradient goes through it).  Only the first run moves
+    BatchNorm running statistics: JAX's functional remat moves them once
+    a step, and the recompute (once for each backward that passes the
+    layer) must not move them again."""
+    runs = []
+
+    def run(*a):
+        runs.append(1)
+        if len(runs) == 1:
+            return layer(*a)
+        norms = [m for m in layer.modules() if isinstance(m, MaskedBatchNorm)]
+        for m in norms:
+            m.update_stats = False
+        try:
+            return layer(*a)
+        finally:
+            for m in norms:
+                m.update_stats = True
+
+    return checkpoint(run, *args, use_reentrant=False)
+
+
+def add_extra_features_head(model: nn.Module, cfg, norm: str,
+                            dtype: Optional[torch.dtype] = None):
     """The submodules of Gong et al.'s extra-features head on `model`
     itself, under the flax names: ``extra_feature_embedding`` (an MLP
     over the Fx per-structure features), then ``fc1`` and ``fc2`` (MLPs
-    over the readout concatenated with it) and the ``fc3`` Dense."""
+    over the readout concatenated with it, in the compute dtype) and the
+    ``fc3`` Dense (no dtype: it promotes, as in JAX)."""
     fx = cfg.extra_features
     width = cfg.hidden_features + fx
-    model.extra_feature_embedding = MLPLayer(fx, fx, norm)
-    model.fc1 = MLPLayer(width, width, norm)
-    model.fc2 = MLPLayer(width, width, norm)
+    model.extra_feature_embedding = MLPLayer(fx, fx, norm, dtype)
+    model.fc1 = MLPLayer(width, width, norm, dtype)
+    model.fc2 = MLPLayer(width, width, norm, dtype)
     model.fc3 = Dense(width, cfg.output_features)
 
 
@@ -271,16 +295,21 @@ class ALIGNN(nn.Module):
     BatchNorm follows the module's mode: ``model.train()`` normalises by
     the batch's masked statistics and moves the running ones, once per
     forward; ``model.eval()`` normalises by the running statistics.
+
+    `dtype` is the compute dtype of the embeddings and the trunk (JAX's
+    ``dtype``; None or float32 for f32, bfloat16, float16); the output
+    head computes in f32.  The parameters stay f32.
     """
 
-    def __init__(self, cfg: ALIGNNConfig):
+    def __init__(self, cfg: ALIGNNConfig,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        refuse_unported(cfg)
         self.cfg = cfg
-        self.embeddings = _Embeddings(cfg, "batchnorm")
-        self.trunk = _Trunk(cfg, "batchnorm")
+        self.dtype = dtype
+        self.embeddings = _Embeddings(cfg, "batchnorm", dtype)
+        self.trunk = _Trunk(cfg, "batchnorm", dtype)
         if cfg.extra_features:
-            add_extra_features_head(self, cfg, "batchnorm")
+            add_extra_features_head(self, cfg, "batchnorm", dtype)
         else:
             self.fc = Dense(cfg.hidden_features, cfg.num_classes
                             if cfg.classification else cfg.output_features)
@@ -309,16 +338,18 @@ class ALIGNNAtomWise(nn.Module):
     Returns a dict with `out` [G, T], `en_out` [G] (energy entering the
     force computation, incl. natoms multiplication and the short-bond
     penalty), `atomwise_pred` [N, A], `additional` [G, Fadd] and
-    `bondlength` [E].
+    `bondlength` [E].  `dtype` as in :class:`ALIGNN`: the heads compute
+    in f32, so the energy, forces and stress are f32.
     """
 
-    def __init__(self, cfg: ALIGNNAtomWiseConfig):
+    def __init__(self, cfg: ALIGNNAtomWiseConfig,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        refuse_unported(cfg)
         self.cfg = cfg
-        self.embeddings = _Embeddings(cfg)
-        self.trunk = _Trunk(cfg)
-        add_atomwise_heads(self, cfg)
+        self.dtype = dtype
+        self.embeddings = _Embeddings(cfg, dtype=dtype)
+        self.trunk = _Trunk(cfg, dtype=dtype)
+        add_atomwise_heads(self, cfg, dtype=dtype)
 
     def forward(self, batch: GraphBatch, r: torch.Tensor):
         cfg = self.cfg
@@ -400,15 +431,17 @@ def init_parameters(model: nn.Module,
     return model
 
 
-def add_atomwise_heads(model: nn.Module, cfg, fc_out=None):
+def add_atomwise_heads(model: nn.Module, cfg, fc_out=None,
+                       dtype: Optional[torch.dtype] = None):
     """The output heads of a force field on `model` (JAX
     ``atomwise_heads``'s submodules): ``fc`` (`fc_out` wide, by default 1
     for a classifier and else ``output_features``) or the extra-features
     head, then ``fc_additional_output`` and ``fc_atomwise`` where asked
-    for."""
+    for.  The Dense heads have no compute dtype (they promote to f32, as
+    in JAX); the extra-features head's MLPs take `dtype`."""
     hid = cfg.hidden_features
     if cfg.extra_features:
-        add_extra_features_head(model, cfg, "layernorm")
+        add_extra_features_head(model, cfg, "layernorm", dtype)
     else:
         if fc_out is None:
             fc_out = 1 if cfg.classification else cfg.output_features

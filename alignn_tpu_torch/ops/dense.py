@@ -59,16 +59,29 @@ import torch
 from alignn_tpu_torch import _build
 from alignn_tpu_torch._build import _raise_on, _stream
 from alignn_tpu_torch.ops.eggc import _DTYPE_CODE, _dispatch, _unit_stride
+from alignn_tpu_torch.ops.fp8 import fp8_ltables_enabled, fp8_round_trip
 
 EPS = 1e-6
 MASK_SHIFT = 1e9   # additive logit shift of a masked slot
+# the shift of a float16 table: -1e9 is -inf there (its largest finite
+# value is 65504), which turns a LayerNorm over a masked row into NaN
+MASK_SHIFT_F16 = 2.0 ** 12
 
 
 def fold_mask(m: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """m + (mask - 1) * 1e9 per row: sigmoid then gives exactly 0 (with a
     zero gradient) on the rows whose {0, 1} mask is 0.  The shift is cast
-    to m's dtype first, as the JAX ``fold_mask`` does."""
-    return m + ((mask - 1.0) * MASK_SHIFT).to(m.dtype)[:, None]
+    to m's dtype first, as the JAX ``fold_mask`` does.
+
+    In float16 the shift is 2^12: JAX's -1e9 overflows to -inf, the edge
+    tail's LayerNorm of a masked pair row is then NaN, and the next layer
+    reads that row (JAX's f16 dense step is NaN).  A logit 2^12 below a
+    real one still gives a sigmoid of exactly 0 in f32, at every order;
+    a larger shift (2^14) rounds a masked row's values onto a few f16
+    steps, and the second order of its LayerNorm then overflows f16 on
+    bench.py's 64-cell batch."""
+    shift = MASK_SHIFT_F16 if m.dtype == torch.float16 else MASK_SHIFT
+    return m + ((mask - 1.0) * shift).to(m.dtype)[:, None]
 
 
 # ---------------------------------------------------------------------------
@@ -210,7 +223,7 @@ def _check(name: str, x: torch.Tensor, rows: int, like: torch.Tensor):
                          f"{x.device}")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"{name}: dtype {x.dtype} not supported by the "
-                        f"kernel (float32, bfloat16)")
+                        f"kernel (float32, bfloat16, float16)")
     if (x.dim() != 2 or x.stride(1) != 1 or x.shape[0] != rows
             or x.shape[1] != like.shape[-1] or x.dtype != like.dtype
             or x.device != like.device):
@@ -396,20 +409,24 @@ def dense_gated_aggregate(m: torch.Tensor, bh: torch.Tensor,
 
 
 class _DensePairAggregate(torch.autograd.Function):
+    """h from m2; the backward reads `m2_res`, the residual saved in m2's
+    place (m2 itself, or its fp8 round trip), an input so that the
+    second order reaches m2 through it."""
+
     @staticmethod
-    def forward(ctx, m2, bh, D):
+    def forward(ctx, m2, m2_res, bh, D):
         h = _dispatch(bh, dense_pair_aggregate_plain,
                       dense_pair_aggregate_cuda, _unit_stride(m2),
                       _unit_stride(bh), D)
         ctx.D = D
-        ctx.save_for_backward(m2, bh)
+        ctx.save_for_backward(m2_res, bh)
         return h
 
     @staticmethod
     def backward(ctx, g):
-        m2, bh = ctx.saved_tensors
-        dm2, dbh = pair_aggregate_bwd(m2, bh, g, ctx.D)
-        return dm2, dbh, None
+        m2_res, bh = ctx.saved_tensors
+        dm2, dbh = pair_aggregate_bwd(m2_res, bh, g, ctx.D)
+        return dm2, None, dbh, None
 
 
 def dense_pair_aggregate(m2: torch.Tensor, bh: torch.Tensor,
@@ -418,9 +435,12 @@ def dense_pair_aggregate(m2: torch.Tensor, bh: torch.Tensor,
 
     m2: [N*D*D, F] rows (j, t, s), s fastest, mask pre-folded; bh:
     [N*D, F] rows (j, s).  Returns [N*D, F] rows (j, t); the caller maps
-    row (j, t) to the edge rev[j*D+t].
+    row (j, t) to the edge rev[j*D+t].  With ``ALIGNN_TPU_FP8_LTABLES``
+    set the backward reads m2 through the e4m3 round trip (JAX
+    ``_pair_fwd``'s residual), the forward the exact m2.
     """
-    return _DensePairAggregate.apply(m2, bh, D)
+    res = fp8_round_trip(m2) if fp8_ltables_enabled() else m2
+    return _DensePairAggregate.apply(m2, res, bh, D)
 
 
 class _PairAggregateBwd(torch.autograd.Function):

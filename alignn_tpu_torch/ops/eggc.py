@@ -43,7 +43,7 @@ from alignn_tpu_torch.ops.segment import edge_gated_aggregate, segment_sum
 
 EPS = 1e-6
 CHUNK_ROWS = 128   # rows per kernel work item
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 @dataclass(frozen=True)
@@ -163,7 +163,7 @@ def _check_rows(name: str, x: torch.Tensor, seg: Segments):
                          f"{x.device}")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"{name}: dtype {x.dtype} not supported by the "
-                        f"kernel (float32, bfloat16)")
+                        f"kernel (float32, bfloat16, float16)")
     if x.dim() != 2 or x.stride(1) != 1:
         raise ValueError(f"{name}: expects a [rows, F] tensor with a "
                          f"unit-stride feature axis, got shape "

@@ -12,7 +12,8 @@ Semantics, exactly those of the JAX package:
 - the window path runs only when ``0 < window <= 2048``, ``window % 256 ==
   0``, x is f32 or bf16 with ``x.shape[-1] % 128 == 0``, and
   ``supertile_for(len(idx)) != 0``; otherwise the result is ``x[idx]``,
-  trash rows included (a static rule decided from shapes);
+  trash rows included (a static rule decided from shapes; so an f16
+  model gathers with ``x[idx]``, as JAX's does);
 - per supertile of ``T = supertile_for(m)`` rows, with ``trash =
   x.shape[0] - 1``, ``base`` is the minimum of the tile's real indices
   aligned down to 128 (0 for an all-trash tile), and row r gets ``x[idx]``
@@ -45,7 +46,10 @@ TLS = 512          # preferred index rows per supertile
 _ALIGN = 128       # window base alignment
 _W_QUANTUM = 256
 _MAX_WINDOW = 2048
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel copies 4- or 2-byte elements bit for bit (f16 as bf16); the
+# window rule takes JAX's two dtypes
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_WINDOW_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def windows_enabled() -> bool:
@@ -95,7 +99,7 @@ def eligible(x: torch.Tensor, idx: torch.Tensor, window: int) -> bool:
     """Whether ``windowed_gather`` takes the window path (JAX's static
     rule); otherwise it is ``x[idx]``."""
     return (0 < window <= _MAX_WINDOW and window % _W_QUANTUM == 0
-            and x.dtype in _DTYPE_CODE and x.shape[-1] % 128 == 0
+            and x.dtype in _WINDOW_DTYPES and x.shape[-1] % 128 == 0
             and supertile_for(idx.shape[0]) != 0)
 
 
@@ -143,7 +147,7 @@ def windowed_gather_cuda(x: torch.Tensor, idx: torch.Tensor,
             and x.dtype in _DTYPE_CODE and idx.device == x.device
             and idx.dtype == torch.int64 and idx.is_contiguous()):
         raise ValueError(
-            f"windowed_gather: the kernel takes a CUDA [rows, F] f32/bf16 "
+            f"windowed_gather: the kernel takes a CUDA [rows, F] f32/bf16/f16 "
             f"table with a unit-stride feature axis and a contiguous int64 "
             f"index vector on its device; got x {tuple(x.shape)} {x.dtype} "
             f"on {x.device}, strides {x.stride()}, idx {idx.dtype} on "

@@ -51,15 +51,26 @@ from alignn_tpu_torch.train.state import (create_train_state, make_eval_step,
 LOSS_KEYS = ("loss", "loss1", "loss2", "loss3", "loss4", "loss5")
 
 
-def build_model(model_cfg) -> torch.nn.Module:
-    """The model of a config union member."""
+# TrainingConfig.dtype -> the model's compute dtype, as JAX maps it (a
+# float64 run computes in f32); None is f32, the parameters' own dtype,
+# which is what JAX's float32 computes for f32 inputs, and which leaves a
+# model converted to float64 (a CPU reference) in float64.  An unknown
+# name raises KeyError, as in JAX.
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16,
+                  "float16": torch.float16, "float64": None}
+
+
+def build_model(model_cfg, dtype: Optional[torch.dtype] = None
+                ) -> torch.nn.Module:
+    """The model of a config union member, with compute dtype `dtype`
+    (None: f32, the serving models)."""
     name = getattr(model_cfg, "name", "alignn_atomwise")
     if name == "alignn":
-        return ALIGNN(model_cfg)
+        return ALIGNN(model_cfg, dtype=dtype)
     if name == "alignn_atomwise":
-        return ALIGNNAtomWise(model_cfg)
+        return ALIGNNAtomWise(model_cfg, dtype=dtype)
     if name == "ealignn_atomwise":
-        return eALIGNNAtomWise(model_cfg)
+        return eALIGNNAtomWise(model_cfg, dtype=dtype)
     raise ValueError(f"unknown model name: {name}")
 
 
@@ -140,16 +151,16 @@ def train_model(config: TrainingConfig, train_loader: BucketedLoader,
     loss, the test metric and the final ``state``).
 
     A fresh model draws its weights from ``random_seed`` through a CPU
-    generator, so the card and the CPU start from the same weights.
+    generator, so the card and the CPU start from the same weights, and
+    computes in ``config.dtype`` (:data:`COMPUTE_DTYPES`); a model passed
+    in keeps its own.  The parameters, gradients, optimizer state and
+    losses stay f32.
     """
     t0 = time.time()
     output_dir = config.output_dir
     os.makedirs(output_dir, exist_ok=True)
     config.dump(os.path.join(output_dir, "config.json"))
-    if config.dtype not in ("float32", "float64"):   # f64 runs f32, as JAX
-        raise NotImplementedError(
-            f'dtype {config.dtype!r} is not ported yet (ROADMAP.md §1 '
-            f'"bf16 compute dtype")')
+    dtype = COMPUTE_DTYPES[config.dtype]
 
     classification = config.classification_threshold is not None or \
         getattr(config.model, "classification", False)
@@ -157,7 +168,7 @@ def train_model(config: TrainingConfig, train_loader: BucketedLoader,
         "alignn_atomwise", "ealignn_atomwise")
     if model is None:
         model = init_parameters(
-            build_model(config.model),
+            build_model(config.model, dtype=dtype),
             torch.Generator().manual_seed(config.random_seed or 123))
     sample = next(iter(val_loader if len(val_loader) else train_loader))
     state = create_train_state(

@@ -7,7 +7,7 @@ Phases:
 1. set-up: the card's name and power limit, TF32 off, the CUDA kernels
    built from ``alignn_tpu_torch/csrc`` (build seconds printed);
 2. every kernel of the serving and training paths against its plain
-   PyTorch version on the card, in f32 and bf16, with device times (CUDA
+   PyTorch version on the card, in f32, bf16 and f16, with device times (CUDA
    events, median of 20 after warm-up, queued behind a spin kernel) and
    the bound: K1 gated aggregation and K2 sorted segment sum at the sparse
    L-stage shape of the 512-atom cell below; K3 dense gated aggregation,
@@ -63,7 +63,15 @@ Phases:
    at the si512 call's own segments; ``envelope_train`` runs the E/F/S
    train step of an envelope model on the first 16 of ``bench.py``'s
    rocksalt cells built with the envelope potentials' graph, 2 warm-up
-   and 10 timed steps, the first against the same step on the CPU port.
+   and 10 timed steps, the first against the same step on the CPU port;
+   ``precision``: ``bench.py``'s default step (bf16, dense, 64 cells),
+   bf16 sparse, fused and windowed, f16 dense, ``remat_layers`` dense in
+   f32 and bf16, the fp8 L-tables (``ALIGNN_TPU_FP8_LTABLES``) in bf16
+   dense and sparse and the envelope step in bf16, between two more f32
+   dense runs: each as phase 7's runs (kernel lists included), its first
+   step against the f32 first step of its path at ``PREC_TOL``
+   (``FP8_TOL``; the f32 runs at the f32 limits, remat's peak memory
+   below the f32 step's) and its 12 losses beside the f32 run's.
 
 10. the C++ neighbour list and the FF layer: ``native_graph`` builds the
    graphs of ``docs/mlearn_r4/Si`` (k-NN) on the three Si cells and of
@@ -99,12 +107,15 @@ Phases:
    epoch (K3/K4/K5a, no K1) and dense with ``ALIGNN_TPU_FUSED_LSTAGE=1``
    (still K4, no K6/K7); then ``docs/mlearn_r4/Si``'s config for one
    epoch on 40 si64 cells (rattled 0.05 A, seeds 0-39) labelled by that
-   potential.  In each run the trainer's own train step is tapped: its
+   potential; then the property run again in bf16 and in f16, one epoch
+   each.  In
+   each run the trainer's own train step is tapped: its
    first step's launches (the per-step counts) and its loss and gradients,
    held against the same step on the port on the CPU (float32; float64
    for the FF run) from the same weights and batch (loss 1e-4 relative,
    gradients 1e-3 x max|grad| + 1e-7, a bias feeding a BatchNorm at the
-   model's scale); after the run
+   model's scale; a bf16 run against the CPU port in bf16 at
+   ``PREC_TOL_BN``); after the run
    the trainer's step is replayed once timed and once profiled.  Each
    run: seconds per epoch, ms per step, the trainer's edges/s,
    graph-stage seconds, cache hits, peak memory.
@@ -118,7 +129,8 @@ Phases:
    against the dense results; (e-train) eALIGNN through ``cli.train`` for
    one epoch on 40 labelled 64-atom rocksalt cells with the Si config's
    trainer settings, its first step against the CPU port (float32, or
-   float64 where float32 misses); (x) the property model at its defaults
+   float64 where float32 misses), and one bf16 step of it; (x) the
+   property model at its defaults
    with 6 extra features a structure on 128 rocksalt cells, one epoch
    sparse and one dense from the cache (each first step against the CPU
    port), and the last weights' predictions with the features against
@@ -163,8 +175,15 @@ SPIN_CYCLES_PER_S = 2e9        # a little above the H100's 1.98 GHz boost
 DIAMOND = np.array([[0, 0, 0], [0.25, 0.25, 0.25], [0, 0.5, 0.5],
                     [0.25, 0.75, 0.75], [0.5, 0, 0.5], [0.75, 0.25, 0.75],
                     [0.5, 0.5, 0], [0.75, 0.75, 0.25]])
-TOL = {"float32": 1e-5, "bfloat16": 1e-2}   # x max|plain|
+TOL = {"float32": 1e-5, "bfloat16": 1e-2, "float16": 1e-2}   # x max|plain|
 CPU_TOL = {"energy_per_atom": 1e-4, "forces": 5e-4, "stress": 1e-5}
+
+
+def kernel_dtypes():
+    """The dtypes every kernel is held in against its plain version."""
+    import torch
+
+    return (torch.float32, torch.bfloat16, torch.float16)
 
 
 def emit(obj):
@@ -227,12 +246,13 @@ def bound(nbytes: float, flops: float, products: float = 0.0,
 
     `flops` are elementwise operations, at the f32 rate outside the tensor
     cores.  `products` are the operations of matrix products, whose least
-    time depends on the operands: bf16 x bf16 accumulated in f32 is exact
-    and runs on the tensor cores at the bf16 rate; an f32-grade product
-    runs on the tensor cores as the 3xTF32 split (hi.hi + hi.lo + lo.hi,
-    f32 sums), three TF32 products at the TF32 rate.
+    time depends on the operands: bf16 x bf16 (or f16 x f16) accumulated
+    in f32 is exact and runs on the tensor cores at the bf16 rate (the
+    f16 rate is the same); an f32-grade product runs on the tensor cores
+    as the 3xTF32 split (hi.hi + hi.lo + lo.hi, f32 sums), three TF32
+    products at the TF32 rate.
     """
-    if dtype == "bfloat16":
+    if dtype in ("bfloat16", "float16"):
         t_products = products / H100_BF16_FLOP_PER_S
     else:
         t_products = 3.0 * products / H100_TF32_FLOP_PER_S
@@ -283,11 +303,11 @@ def kernel_phase(seg, failures: list):
     results = {}
     index_bytes = 4 * (n + 1)      # the kernels read only the CSR pointer
 
-    # K1 forward, f32 and bf16; backward (f32) through the K2 Function
+    # K1 forward, f32, bf16 and f16; backward (f32) through the K2 Function
     m32 = torch.randn(rows, f, device=dev, generator=gen)
     bh32 = torch.randn(rows, f, device=dev, generator=gen)
     k1 = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in kernel_dtypes():
         name = str(dtype).split(".")[1]
         m, bh = m32.to(dtype), bh32.to(dtype)
         h = ek.gated_aggregate_cuda(m, bh, seg)
@@ -330,7 +350,7 @@ def kernel_phase(seg, failures: list):
                         generator=gen).float() / 16
     lengths = (seg.row_ptr[1:] - seg.row_ptr[:-1]).long()
     k2 = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in kernel_dtypes():
         name = str(dtype).split(".")[1]
         x = x32.to(dtype)
         out = ek.sorted_segment_sum_cuda(x, seg)
@@ -371,9 +391,8 @@ def dense_kernel_phase(batch, failures: list):
     def randn(*shape):
         return torch.randn(*shape, device=dev, generator=gen)
 
-    m32 = dk.fold_mask(randn(rows, f), batch.edge_mask)
-    bh32 = randn(rows, f)
-    m2_32 = dk.fold_mask(randn(pairs, f), batch.lg_mask)
+    # the masks fold into the logits in each dtype, as the model folds them
+    m_raw, bh32, m2_raw = randn(rows, f), randn(rows, f), randn(pairs, f)
     g32 = randn(rows, f)
     u32, v32 = randn(pairs, f), randn(rows, f)
     masked_pairs = batch.lg_mask == 0
@@ -383,29 +402,30 @@ def dense_kernel_phase(batch, failures: list):
                     ("K5b", "pair_aggregate_bwd2")):
         kern, plain = getattr(dk, fn + "_cuda"), getattr(dk, fn + "_plain")
         out = {}
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in kernel_dtypes():
             name = str(dtype).split(".")[1]
             es = torch.tensor([], dtype=dtype).element_size()
             bh, g = bh32.to(dtype), g32.to(dtype)
+            m = dk.fold_mask(m_raw.to(dtype), batch.edge_mask)
+            m2 = dk.fold_mask(m2_raw.to(dtype), batch.lg_mask)
             if key == "K3":
-                args = (m32.to(dtype), bh, D)
+                args = (m, bh, D)
                 # read m, bh; write h.  sigmoid 4, gated sum 2, gate sum 1
                 # per element; add and divide per output
                 nbytes, ops = (2 * rows + n) * f * es, 7.0 * rows * f + \
                     2.0 * n * f
             elif key == "K4":
-                args = (m2_32.to(dtype), bh, D)
+                args = (m2, bh, D)
                 nbytes, ops = (pairs + 2 * rows) * f * es, 7.0 * pairs * f + \
                     2.0 * rows * f
             elif key == "K5a":
-                args = (m2_32.to(dtype), bh, g, D)
+                args = (m2, bh, g, D)
                 # read m2, bh, g; write dm2, dbh.  per pair element:
                 # sigmoid 4, sums 3, dm2 6, dbh 2; per row: ginv, gh 5
                 nbytes = (2 * pairs + 3 * rows) * f * es
                 ops = 15.0 * pairs * f + 5.0 * rows * f
             else:
-                args = (m2_32.to(dtype), bh, g, u32.to(dtype), v32.to(dtype),
-                        D)
+                args = (m2, bh, g, u32.to(dtype), v32.to(dtype), D)
                 # read m2, u, bh, g, v; write c_m2, c_bh, c_g.  per pair
                 # element: sigmoid 4, sig' sig'' 4, sums 9, c_m2 10, c_bh 4;
                 # per row: h, ginv, gh, k, c_g and the k terms 15
@@ -452,6 +472,7 @@ def dense_kernel_phase(batch, failures: list):
                 err = compare(got, ref, name, failures, f"{key} {fn}")
             del got, ref
             b_ms, b_by = bound(nbytes, ops)
+            del m, m2
             ms = cuda_ms(lambda: kern(*args))
             out[name] = {**err, "ms": ms,
                          "plain_ms": cuda_ms(lambda: plain(*args)),
@@ -486,17 +507,18 @@ def fused_kernel_phase(batch, failures: list):
     z32, w = randn(pairs, f), randn(f, f, scale=0.0625)
     b, sc, bi = randn(f, scale=0.1), 1.0 + randn(f, scale=0.1), \
         randn(f, scale=0.1)
-    sg32 = dk.fold_mask(randn(rows, f), batch.edge_mask)
-    dg32 = dk.fold_mask(randn(rows, f), batch.edge_mask)
+    # the edge mask folds into sg and dg in each dtype, as the model folds it
+    sg32, dg32 = randn(rows, f), randn(rows, f)
     bh32, dh32 = randn(rows, f), randn(rows, f)
     de32 = randn(pairs, f) * batch.lg_mask[:, None]
     results = {"K6": {}, "K7": {}}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in kernel_dtypes():
         name = str(dtype).split(".")[1]
         es = torch.tensor([], dtype=dtype).element_size()
         z = z32.to(dtype)
-        args = (z, w, b, sg32.to(dtype), dg32.to(dtype), bh32.to(dtype), sc,
-                bi, D)
+        args = (z, w, b, dk.fold_mask(sg32.to(dtype), batch.edge_mask),
+                dk.fold_mask(dg32.to(dtype), batch.edge_mask),
+                bh32.to(dtype), sc, bi, D)
         bargs = (*args[:-1], de32.to(dtype), dh32.to(dtype), D)
         e_new, h = fk.fused_pair_lstage_cuda(*args)
         ref_e, ref_h = fk.fused_pair_lstage_plain(*args)
@@ -885,17 +907,17 @@ TRAIN_CFG = dict(  # bench.py's model and loss weights, full f32
 TRAIN_TOL = {"loss_rel": 1e-4, "grad_rel": 1e-3, "grad_abs": 1e-7}
 
 
-def first_step(weights, batch, cfg=TRAIN_CFG):
+def first_step(weights, batch, cfg=TRAIN_CFG, dtype=None):
     """(loss components, gradient of every parameter) of one train step
-    of a fresh model of config `cfg` from `weights` on `batch`'s
-    device."""
+    of a fresh model of config `cfg` and compute dtype `dtype` from
+    `weights` on `batch`'s device."""
     from alignn_tpu_torch.nn.models import (ALIGNNAtomWise,
                                             ALIGNNAtomWiseConfig)
     from alignn_tpu_torch.train.optim import build_optimizer
     from alignn_tpu_torch.train.state import (create_train_state,
                                               make_train_step)
 
-    model = ALIGNNAtomWise(ALIGNNAtomWiseConfig(**cfg))
+    model = ALIGNNAtomWise(ALIGNNAtomWiseConfig(**cfg), dtype=dtype)
     model.load_state_dict(weights)
     state = create_train_state(model, batch,
                                build_optimizer("adamw", 1e-3, 1e-5))
@@ -938,12 +960,12 @@ def train_batches(gs, device):
 
 
 def train_run(weights, batch, layout: str, failures: list, steps: int = 12,
-              warmup: int = 2, cfg=TRAIN_CFG):
-    """`steps` E/F/S train steps of a fresh model of config `cfg` from
-    `weights` on `batch`, the first `warmup` untimed: ms per step, edges
-    per second over the timed window, launches per step, peak memory, one
-    profiled step.  Returns (row, first step's losses and gradients,
-    launches)."""
+              warmup: int = 2, cfg=TRAIN_CFG, dtype=None):
+    """`steps` E/F/S train steps of a fresh model of config `cfg` and
+    compute dtype `dtype` from `weights` on `batch`, the first `warmup`
+    untimed: ms per step, edges per second over the timed window, launches
+    per step, peak memory, one profiled step.  Returns (row, first step's
+    losses and gradients, launches)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -953,7 +975,7 @@ def train_run(weights, batch, layout: str, failures: list, steps: int = 12,
     from alignn_tpu_torch.train.state import (create_train_state,
                                               make_train_step)
 
-    model = ALIGNNAtomWise(ALIGNNAtomWiseConfig(**cfg))
+    model = ALIGNNAtomWise(ALIGNNAtomWiseConfig(**cfg), dtype=dtype)
     model.load_state_dict(weights)
     state = create_train_state(model, batch,
                                build_optimizer("adamw", 1e-3, 1e-5))
@@ -1033,6 +1055,14 @@ def train_phase(weights, graphs, failures: list):
             kernels = dense_kernel_phase(batch, failures)
             kernels.update(fused_kernel_phase(batch, failures))
             torch.cuda.empty_cache()
+        else:
+            # K1/K2 at the sparse batch's L-stage (rows = its L-edges)
+            seg = batch.lg_index.dst
+            sparse_lstage = {"shape": {"rows": int(seg.ids.shape[0]),
+                                       "segments": seg.num, "features": 256},
+                             **kernel_phase(seg, failures)}
+            del seg
+            torch.cuda.empty_cache()
         rows[layout], first[layout], launch_runs[layout] = train_run(
             weights, batch, layout, failures)
         del batch
@@ -1044,6 +1074,7 @@ def train_phase(weights, graphs, failures: list):
             first_step(weights, batch),
             first_step(weights, cpu_batches[layout]),
             f"{layout} 8 cells card vs CPU", failures)
+    kernels["sparse_lstage"] = sparse_lstage
     return {"cell": "dense_rocksalt_b64", "config": TRAIN_CFG,
             "optimizer": "adamw lr 1e-3 wd 1e-5, no decay mask",
             "precision": "f32 (TF32 off)", "tolerances": TRAIN_TOL,
@@ -1140,7 +1171,7 @@ def gather_kernel_phase(batch, failures: list):
             failures.append(f"K8 {site}: window {w} does not take the "
                             f"window path")
             continue
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in kernel_dtypes():
             x = x32.to(dtype)
             got = gk.windowed_gather_cuda(x, idx, w)
             ref = gk.windowed_gather_plain(x, idx, w)
@@ -1158,7 +1189,7 @@ def gather_kernel_phase(batch, failures: list):
     results = {"checks": checks}
     sites = {s[0]: s for s in gather_sites(batch)}
     for key, site, dtypes in (
-            ("float32", "lstage_src", (torch.float32, torch.bfloat16)),
+            ("float32", "lstage_src", kernel_dtypes()),
             ("dst_float32", "lstage_dst", (torch.float32,))):
         _s, rows, f, idx, w = sites[site]
         x32 = torch.randn(rows, f, device=dev, generator=gen)
@@ -1181,7 +1212,8 @@ def gather_kernel_phase(batch, failures: list):
                 "library_ms": cuda_ms(lambda: x.index_select(0, idx)),
                 "host_us": host_us(lambda: gk.windowed_gather(x, idx, w)),
                 "library_host_us": host_us(lambda: x.index_select(0, idx))}
-            results[key if dtype == torch.float32 else "bfloat16"] = entry
+            results[key if dtype == torch.float32
+                    else str(dtype).split(".")[1]] = entry
         del x32, x
     torch.cuda.empty_cache()
     return results
@@ -2402,10 +2434,13 @@ class StepTap:
         from alignn_tpu_torch.train.optim import build_optimizer
         from alignn_tpu_torch.train.state import (create_train_state,
                                                   make_train_step)
-        from alignn_tpu_torch.train.trainer import build_model
+        from alignn_tpu_torch.train.trainer import COMPUTE_DTYPES, build_model
 
         cfg = TrainingConfig.from_json(os.path.join(out, "config.json"))
-        model = build_model(cfg.model)
+        # a 16-bit run: the CPU port in the same compute dtype, at the
+        # 16-bit limits (prec_diff, PREC_TOL)
+        compute = COMPUTE_DTYPES[cfg.dtype]
+        model = build_model(cfg.model, dtype=compute)
         model.load_state_dict(self.first["weights"])
         batch = self.first["batch"]
         if dtype != "float32":    # as the card ran it, else all in dtype
@@ -2418,9 +2453,16 @@ class StepTap:
         cpu_s = time.perf_counter() - t
         ref_loss, card = float(losses["loss"]), self.first
         ref = {k: p.grad.detach() for k, p in model.named_parameters()}
-        top = max(float(g.abs().max()) for g in ref.values())
         batchnorm = any(isinstance(m, MaskedBatchNorm)
                         for m in model.modules())
+        if compute is not None:
+            return {"cpu_dtype": dtype, "compute_dtype": cfg.dtype,
+                    "cpu_step_s": cpu_s, "first_loss": card["loss"],
+                    **prec_diff(({"loss": card["loss"]}, card["grads"]),
+                                ({"loss": ref_loss}, ref),
+                                f"train_cli {label} card vs CPU", failures,
+                                PREC_TOL_BN if batchnorm else PREC_TOL)}
+        top = max(float(g.abs().max()) for g in ref.values())
         worst, worst_name = 0.0, ""
         for name, g in ref.items():
             diff = float((card["grads"][name].double() - g).abs().max())
@@ -2638,7 +2680,18 @@ def train_cli_phase(failures: list) -> tuple:
         rows["b_dense_fused_switch"] = cli_train(
             "dense_fused_switch", root, cfg_b,
             os.path.join(d, "out_dense_fused"), failures, cache_from=out_a)
-    torch.cuda.empty_cache()
+    # (a) again in bf16 and in f16 for one epoch each, from (a)'s cache
+    for run, dt in (("a_bf16", "bfloat16"), ("a_f16", "float16")):
+        rows[run] = cli_train(
+            "sparse", root, write_json(os.path.join(d, f"property_{dt}.json"),
+                                       {**PROPERTY_RUN, "epochs": 1,
+                                        "dtype": dt}),
+            os.path.join(d, f"out_{dt}"), failures, cache_from=out_a)
+        rows[run]["f32_first_epoch"] = {
+            k: rows["a_sparse"][k][0] for k in ("seconds_per_epoch",
+                                                "ms_per_train_step",
+                                                "trainer_edges_per_s")}
+        torch.cuda.empty_cache()
     ff_root = os.path.join(d, "si64_40")
     write_ff_folder(ff_root, Calculator(path=MODEL_DIR))
     with open(os.path.join(MODEL_DIR, "config.json")) as f:
@@ -2995,6 +3048,12 @@ def model_families_phase(failures: list) -> tuple:
         "ealignn", e_root, write_json(os.path.join(d, "ealignn.json"), cfg_e),
         os.path.join(d, "out_ealignn"), failures, float64_if_missed=True)
     launches["e_train_per_step"] = rows["e_train"]["launches_per_train_step"]
+    # one bf16 step of (e-train): one batch of 5 cells
+    rows["e_train_bf16"] = cli_train(
+        "ealignn", e_root, write_json(os.path.join(d, "ealignn_bf16.json"),
+                                      {**cfg_e, "n_train": 5,
+                                       "dtype": "bfloat16"}),
+        os.path.join(d, "out_ealignn_bf16"), failures)
     torch.cuda.empty_cache()
     root = os.path.join(d, f"rocksalt{X_CELLS}_x")
     write_extra_folder(root, X_CELLS)
@@ -3042,6 +3101,168 @@ KERNELS = (  # id, name, source, replaces
 DENSE_KERNELS = ("K3", "K4", "K5a", "K5b", "K6", "K7")
 FUSED_ENV = "ALIGNN_TPU_FUSED_LSTAGE"
 WGATHER_ENV = "ALIGNN_TPU_ENABLE_WGATHER"
+
+
+# ---------------------------------------------------------------------------
+# the compute dtypes, remat_layers and the fp8 L-tables (phase precision)
+# ---------------------------------------------------------------------------
+
+# a 16-bit first step against the f32 step of the same path, weights and
+# batch, at the limits tests/test_torch_port_precision.py holds the CPU
+# port's 16-bit steps to (its CARD): loss components within loss_rel
+# (relative), the gradients' L2 distance within l2_rel of their L2 norm,
+# each parameter's max abs difference within grad_top x the model's
+# largest gradient
+PREC_TOL = {"loss_rel": 2e-2, "l2_rel": 5e-2, "grad_top": 0.15}
+# a BatchNorm model's bf16 gradients are mostly cancellation noise (its
+# CARD_BN there)
+PREC_TOL_BN = {"loss_rel": 2e-2, "l2_rel": 0.2, "grad_top": 0.3}
+# the fp8 L-tables round through 3 mantissa bits: the limits of the JAX
+# package's own fp8 tests (tests/test_fp8.py: outputs 5 %, forces 15 %)
+FP8_TOL = {"loss_rel": 5e-2, "l2_rel": 0.15, "grad_top": 0.15}
+FP8_ENV = "ALIGNN_TPU_FP8_LTABLES"
+# (run, layout: its kernel lists and its f32 run, dtype, switch, remat);
+# the f32 dense step opens and closes the runs, so that bench.py's default
+# step is timed between two f32 steps of the same call
+PRECISION_RUNS = (
+    ("f32_dense_before", "dense", "float32", None, False),
+    ("bf16_dense", "dense", "bfloat16", None, False),
+    ("bf16_sparse", "sparse", "bfloat16", None, False),
+    ("bf16_fused", "fused", "bfloat16", FUSED_ENV, False),
+    ("bf16_windowed", "wsparse", "bfloat16", WGATHER_ENV, False),
+    ("f16_dense", "dense", "float16", None, False),
+    ("remat_f32_dense", "dense", "float32", None, True),
+    ("remat_bf16_dense", "dense", "bfloat16", None, True),
+    ("fp8_bf16_dense", "dense", "bfloat16", FP8_ENV, False),
+    ("fp8_bf16_sparse", "sparse", "bfloat16", FP8_ENV, False),
+    ("bf16_envelope", "envelope", "bfloat16", None, False),
+    ("f32_dense_after", "dense", "float32", None, False))
+
+
+def prec_diff(a, b, what: str, failures: list, tol=PREC_TOL) -> dict:
+    """Loss components and gradients of two first steps (a 16-bit or fp8
+    step against the f32 step), within `tol`; anything not finite
+    fails."""
+    (la, ga), (lb, gb) = a, b
+    loss_rel = max(abs(la[k] - lb[k]) / max(abs(lb[k]), 1e-30)
+                   for k in lb if lb[k] != 0)
+    top = max(float(g.abs().max()) for g in gb.values())
+    worst, worst_name, sq, norm = 0.0, "", 0.0, 0.0
+    for k, ref in gb.items():
+        d = ga[k].double() - ref.double()
+        diff = float(d.abs().max())
+        sq += float((d * d).sum())
+        norm += float((ref.double() ** 2).sum())
+        ratio = diff / (tol["grad_top"] * top)
+        if not np.isfinite(ratio):
+            ratio = float("inf")
+        if ratio > worst:
+            worst, worst_name = ratio, k
+    l2_rel = float(np.sqrt(sq / norm))
+    if not loss_rel <= tol["loss_rel"]:
+        failures.append(f"precision {what}: loss components differ by "
+                        f"{loss_rel} (relative) > {tol['loss_rel']}")
+    if not worst <= 1.0:
+        failures.append(f"precision {what}: gradient of {worst_name} at "
+                        f"{worst} x its limit")
+    if not l2_rel <= tol["l2_rel"]:
+        failures.append(f"precision {what}: gradients' L2 distance "
+                        f"{l2_rel} of their norm > {tol['l2_rel']}")
+    return {"loss_max_rel_diff": loss_rel, "grad_l2_rel": l2_rel,
+            "grad_worst_share_of_limit": worst, "grad_worst": worst_name}
+
+
+def trajectory_gap(run: list, ref: list) -> dict:
+    """The largest relative gap of the total loss, step by step, between
+    two 12-step trajectories."""
+    gaps = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+            for a, b in zip(run, ref)]
+    return {"loss_rel_gap_per_step": gaps, "loss_rel_gap_max": max(gaps)}
+
+
+def precision_phase(weights, graphs, f32_rows: dict, f32_first: dict,
+                    failures: list) -> tuple:
+    """dense_rocksalt_b64 in the compute dtypes of the JAX trainer:
+    bench.py's default step (bf16, dense, b64), bf16 sparse, fused and
+    windowed, f16 dense, remat_layers dense in f32 and bf16, the fp8
+    L-tables dense and sparse in bf16, and the envelope b16 step in bf16,
+    between two f32 dense runs.
+    Per run 2 warm-up and 10 timed steps (ms, edges/s, one profiled
+    step's busy share, peak memory, launches a step, the 12-step loss
+    trajectory beside the f32 run of the same path, `f32_rows`), and its
+    first step against the card's f32 first step of the same path on the
+    same weights and batch (`f32_first`, else computed here) at PREC_TOL
+    (FP8_TOL with fp8; f32 runs at TRAIN_TOL, remat's peak memory below
+    the f32 step's).  Returns (rows, launches a step per run)."""
+    import torch
+
+    from alignn_tpu_torch.nn.models import (ALIGNNAtomWise,
+                                            ALIGNNAtomWiseConfig,
+                                            init_parameters)
+
+    dev = torch.device("cuda")
+    batches = train_batches(graphs, dev)
+    env_graphs = None
+    # envelope_train_phase's weights
+    envelope_weights = init_parameters(
+        ALIGNNAtomWise(ALIGNNAtomWiseConfig(**ENVELOPE_TRAIN_CFG)),
+        torch.Generator().manual_seed(0)).state_dict()
+    rows, launches = {}, {}
+    for run, layout, dtype, switch, remat in PRECISION_RUNS:
+        cfg = TRAIN_CFG
+        if layout == "envelope":
+            if env_graphs is None:
+                from alignn_tpu_torch.graph.batch import (BucketSpec,
+                                                          batch_graphs)
+                from alignn_tpu_torch.graph.build import rocksalt_graphs
+
+                env_graphs = rocksalt_graphs(
+                    ENVELOPE_TRAIN_CELLS, seed=0,
+                    neighbor_strategy="radius_graph", cutoff=4.5,
+                    use_canonize=False)
+                batches["envelope"] = batch_graphs(
+                    env_graphs, BucketSpec.tight_for_batch(env_graphs), dev)
+            cfg = ENVELOPE_TRAIN_CFG
+            w = envelope_weights
+        else:
+            w = weights
+        if remat:
+            cfg = {**cfg, "remat_layers": True}
+        batch = batches[{"wsparse": "sparse", "fused": "dense"}.get(
+            layout, layout)]
+        tdtype = getattr(torch, dtype)
+        with switch_env(switch) if switch else contextlib.nullcontext():
+            row, first, per_step = train_run(
+                w, batch, layout, failures, cfg=cfg,
+                dtype=None if dtype == "float32" else tdtype)
+            if layout not in f32_first:
+                f32_first[layout] = first_step(
+                    w, batch, {k: v for k, v in cfg.items()
+                               if k != "remat_layers"})
+        what = f"{run} first step vs f32"
+        if dtype == "float32":
+            check = step_diff(first, f32_first[layout], what, failures)
+        if remat and dtype == "float32":
+            peak, ref_peak = row["peak_memory_bytes"], \
+                f32_rows[layout]["peak_memory_bytes"]
+            check["peak_vs_f32_no_remat"] = peak / ref_peak
+            if not peak < ref_peak:
+                failures.append(f"precision {run}: peak memory {peak} B not "
+                                f"below the step without remat's "
+                                f"{ref_peak} B")
+        elif dtype != "float32":
+            check = prec_diff(first, f32_first[layout], what, failures,
+                              FP8_TOL if switch == FP8_ENV else PREC_TOL)
+        row = {"run": run, "dtype": dtype, "switch": switch,
+               "remat_layers": remat, "first_step_vs_f32": check,
+               "f32_ms_per_step": f32_rows[layout]["ms_per_step"],
+               "f32_peak_memory_bytes": f32_rows[layout]["peak_memory_bytes"],
+               "trajectory_vs_f32": trajectory_gap(
+                   row["losses"], f32_rows[layout]["losses"]), **row}
+        rows[run], launches[run] = row, per_step
+        del first
+        torch.cuda.empty_cache()
+    return rows, launches
 
 
 @contextlib.contextmanager
@@ -3219,6 +3440,21 @@ def main() -> int:
     emit({"phase": "envelope_train", **erow})
     torch.cuda.empty_cache()
 
+    # the compute dtypes, remat and the fp8 L-tables on the same cells:
+    # counts from 0 over each run's 12 steps
+    t = time.perf_counter()
+    prec_rows, precision_launches = precision_phase(
+        weights, graphs, {"dense": train_row["dense"],
+                          "sparse": train_row["sparse"],
+                          "fused": fused_row["fused"],
+                          "wsparse": wtrain_row["wsparse"],
+                          "envelope": erow["envelope"]},
+        dict(first), failures)
+    for row in prec_rows.values():
+        emit({"phase": "precision", **row})
+    emit({"phase": "precision", "part": "total",
+          "seconds": time.perf_counter() - t})
+
     # the C++ neighbour list, the FF tasks, the on-device MD and FIRE loops
     env_calc = Calculator(path=ENVELOPE_DIRS["Si"])
     cu_calc = Calculator(path=ENVELOPE_DIRS["Cu"])
@@ -3292,6 +3528,9 @@ def main() -> int:
                 for layout, per_step in property_launches.items()},
             "launches_model_families": {
                 run: counts[key] for run, counts in family_launches.items()},
+            "launches_per_precision_step": {
+                run: counts[key]
+                for run, counts in precision_launches.items()},
             "max_abs_err": f32["max_abs_err"], "rel_err": f32["rel_err"],
             "tol_rel": f32["tol_rel"],
             "ms": f32["ms"], "kernel_ms": f32["ms"],
@@ -3301,7 +3540,7 @@ def main() -> int:
             **({"gemm_only_ms": f32["gemm_only_ms"]}
                if "gemm_only_ms" in f32 else {}),
             "shape": kshape,
-            "bfloat16": r["bfloat16"],
+            "bfloat16": r["bfloat16"], "float16": r["float16"],
             **({"at_shape": {"si512_rattled": {"shape": dshape,
                                                **kernels[key]},
                              "dense_rocksalt_b64": {"shape": train_shape,
@@ -3309,6 +3548,10 @@ def main() -> int:
                if dense else {}),
             **({"backward": r["backward"]} if "backward" in r else {}),
             **({"at_envelope_si512": envelope_k2} if key == "K2" else {}),
+            **({"at_train_sparse_lstage": {
+                "shape": train_kernels["sparse_lstage"]["shape"],
+                **train_kernels["sparse_lstage"][key]}}
+               if key in ("K1", "K2") else {}),
             **({"host_us": f32["host_us"],
                 "library_host_us": f32["library_host_us"],
                 "dst_float32": r["dst_float32"], "sites": r["checks"]}

@@ -57,6 +57,8 @@ CASES = [  # (segments, rows, F, dtype, strided input)
     (64, 900, 512, torch.float32, True),      # row stride != F, 2 chunks
     (8, 5000, 256, torch.float32, False),     # multi-item segments
     (3, 20000, 256, torch.bfloat16, False),   # trash-slot-like lengths
+    (256, 1500, 256, torch.float16, False),
+    (97, 700, 40, torch.float16, True),       # f16 scalar path
 ]
 
 
@@ -106,10 +108,11 @@ def test_gated_aggregate_backward_matches_plain(cuda):
 
 
 def test_unsupported_dtype_raises(cuda):
+    """The kernels take f32, bf16 and f16; a float64 table raises."""
     seg = _seg(np.zeros(4), 1, cuda)
     with pytest.raises(TypeError):
         ek.sorted_segment_sum_cuda(torch.zeros(4, 8, device=cuda,
-                                               dtype=torch.float16), seg)
+                                               dtype=torch.float64), seg)
 
 
 def test_calculator_cuda_matches_cpu(cuda):
@@ -139,11 +142,13 @@ DENSE_CASES = [  # (nodes, D, F, dtype, strided input)
     (12, 7, 256, torch.float32, True),       # row stride != F
     (6, 60, 128, torch.float32, False),      # K5a needs > 48 KB of smem
     (4, 3, 1024, torch.bfloat16, True),      # 8 feature chunks
+    (96, 13, 256, torch.float16, False),
+    (17, 5, 42, torch.float16, True),        # f16 scalar path
 ]
 
 
 def _close_rel(out, ref, dtype):
-    """f32 1e-5, bf16 1e-2, times max|plain|."""
+    """f32 1e-5, bf16 and f16 1e-2, times max|plain|."""
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     ref = ref.float()
     err = (out.float() - ref).abs().max().item()
@@ -250,6 +255,10 @@ PAIR_BWD_CASES = [  # (nodes, D, F, dtype, layout)
     (30, 6, 40, torch.float32, "dense"),        # F = 40 of a 64-wide block
     (30, 6, 72, torch.bfloat16, "strided"),     # a second block of 8 live
     (30, 6, 42, torch.float32, "dense"),        # F % 4 != 0: scalar path
+    (40, 13, 256, torch.float16, "dense"),      # f16 at the training D
+    (24, 18, 256, torch.float16, "strided"),
+    (3, 41, 64, torch.float16, "unaligned"),    # K5b f16: two-pass
+    (2, 59, 64, torch.float16, "dense"),        # K5a f16: two-pass
 ]
 
 
@@ -347,6 +356,8 @@ K3_CASES = [  # (nodes, D, F, dtype, layout)
     (40, 18, 64, torch.bfloat16, "unaligned"),     # row stride F + 1
     (9, 1, 40, torch.float32, "unaligned"),
     (5, 200, 64, torch.float32, "contiguous"),     # 13 batches of loads
+    (512, 13, 256, torch.float16, "contiguous"),
+    (40, 18, 64, torch.float16, "unaligned"),
 ]
 
 
@@ -663,6 +674,9 @@ FUSED_CASES = [  # (nodes, D, F, dtype, strided input)
     (7, 18, 128, torch.bfloat16, True),
     (3, 64, 128, torch.bfloat16, False),     # the largest D: one t-group
     (2, 64, 256, torch.float32, True),
+    (30, 18, 256, torch.float16, False),
+    (9, 5, 256, torch.float16, True),
+    (3, 64, 128, torch.float16, False),
 ]
 
 
@@ -731,7 +745,8 @@ def test_fused_kernels_match_plain(cuda, n, D, f, dtype, strided):
     assert torch.all(h[:D] == 0)                    # the empty node
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_fused_kernels_all_masked(cuda, dtype):
     """A batch whose pair rows are all masked: h and every cotangent
     exactly 0 (sigmoid of the folded -1e9 is 0 at every order)."""
@@ -743,7 +758,8 @@ def test_fused_kernels_all_masked(cuda, dtype):
         assert torch.all(x == 0)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_fused_kernels_are_deterministic(cuda, dtype):
     """Two launches on the same inputs give bit-identical outputs: every
     sum across blocks (dW, db, dscale, dbias, dsg, dbh) is taken from

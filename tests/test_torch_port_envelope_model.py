@@ -376,16 +376,18 @@ def test_dense_calculator_refuses_an_envelope_potential():
 def test_extra_features_still_refused():
     """``extra_features`` is ported (tests/test_torch_port_families.py
     holds it against JAX): the model builds JAX's head (no ``fc``; an
-    ``extra_feature_embedding`` MLP, ``fc1``, ``fc2`` and ``fc3``), and
-    what the port still refuses is the two unported switches."""
+    ``extra_feature_embedding`` MLP, ``fc1``, ``fc2`` and ``fc3``).  The
+    two switches that were refused build too: ``remat_layers`` puts the
+    trunk's layers under remat (held against JAX's remat in
+    tests/test_torch_port_precision_switches.py)."""
     from alignn_tpu_torch.nn.models import (ALIGNNAtomWise,
                                             ALIGNNAtomWiseConfig)
 
     model = ALIGNNAtomWise(ALIGNNAtomWiseConfig(extra_features=4))
     assert not hasattr(model, "fc")
     assert model.fc3.in_features == 256 + 4
-    with pytest.raises(NotImplementedError, match="remat_layers"):
-        ALIGNNAtomWise(ALIGNNAtomWiseConfig(remat_layers=True))
+    assert not model.trunk.remat
+    assert ALIGNNAtomWise(ALIGNNAtomWiseConfig(remat_layers=True)).trunk.remat
 
 
 # ---------------------------------------------------------------------------

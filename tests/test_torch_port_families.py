@@ -597,30 +597,3 @@ def test_device_loops_refuse_ealignn():
         run_md_jit(model, atoms, steps=1, device="cpu")
     with pytest.raises(TypeError, match="ALIGNNAtomWise"):
         batch_relax(model, [atoms], max_steps=1, device="cpu")
-
-
-UNPORTED = [("alignn", "remat_layers"), ("alignn_atomwise", "remat_layers"),
-            ("alignn", "fp8"), ("alignn_atomwise", "fp8"),
-            ("ealignn_atomwise", "fp8")]
-
-
-@pytest.mark.parametrize("name,switch", UNPORTED,
-                         ids=[f"{n}-{s}" for n, s in UNPORTED])
-def test_unported_switches_raise(monkeypatch, name, switch):
-    """``remat_layers: true`` and a model built while
-    ``ALIGNN_TPU_FP8_LTABLES`` is set (JAX's switch: unset, empty and "0"
-    are off) raise NotImplementedError naming the ROADMAP item, instead of
-    running something else than JAX would."""
-    from alignn_tpu_torch.config import model_config_from_dict
-    from alignn_tpu_torch.train.trainer import build_model
-
-    cfg = {"name": name, **SMALL}
-    if switch == "remat_layers":
-        cfg["remat_layers"] = True
-    else:
-        monkeypatch.setenv("ALIGNN_TPU_FP8_LTABLES", "0")
-        build_model(model_config_from_dict(cfg))          # "0" is off
-        monkeypatch.setenv("ALIGNN_TPU_FP8_LTABLES", "1")
-    with pytest.raises(NotImplementedError,
-                       match='ROADMAP.md §1 "Remaining modules"'):
-        build_model(model_config_from_dict(cfg))
