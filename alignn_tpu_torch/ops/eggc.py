@@ -42,7 +42,7 @@ from alignn_tpu_torch.ops.gather import windowed_gather
 from alignn_tpu_torch.ops.segment import edge_gated_aggregate, segment_sum
 
 EPS = 1e-6
-CHUNK_ROWS = 128   # rows per kernel work item
+CHUNK_ROWS = 32    # rows per kernel work item (one warp each)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
@@ -52,15 +52,22 @@ class Segments:
 
     The kernels cut every segment into items of at most ``CHUNK_ROWS``
     rows (item i covers rows ``[item_rows[i], item_rows[i+1])``, segment n
-    owns items ``[item_ptr[n], item_ptr[n+1])``), so that a long segment,
-    such as the trash slot of a padded batch, spreads over many blocks.
-    Built once per batch.
+    owns items ``[item_ptr[n], item_ptr[n+1])``, ``owner[i]`` is the
+    segment of item i), so that a long segment, such as the trash slot of
+    a padded batch, spreads over many warps.  The items of a segment of
+    several combine their sums through ``counters``, arrival counts that
+    are 0 between launches.  Built once per batch.
+
+    A Segments is used by one kernel launch at a time, on one stream: two
+    launches in flight at once would share its counters.
     """
 
     ids: torch.Tensor        # [E] int64, ascending, in [0, num)
     row_ptr: torch.Tensor    # [num + 1] int32
     item_rows: torch.Tensor  # [num_items + 1] int32
     item_ptr: torch.Tensor   # [num + 1] int32
+    owner: torch.Tensor      # [num_items] int32 (num: a padding item)
+    counters: torch.Tensor   # [2 * num_items] int32, zeros
     num: int
     num_items: int
 
@@ -86,8 +93,10 @@ class Segments:
         i32 = torch.int32
         return Segments(ids=ids, row_ptr=row_ptr.to(i32),
                         item_rows=item_rows.to(i32),
-                        item_ptr=item_ptr.to(i32), num=int(num),
-                        num_items=int(num_items))
+                        item_ptr=item_ptr.to(i32), owner=owner.to(i32),
+                        counters=torch.zeros(2 * num_items, device=dev,
+                                             dtype=i32),
+                        num=int(num), num_items=int(num_items))
 
     def max_items(self) -> int:
         """The most work items any ids of this length over ``num``
@@ -99,11 +108,11 @@ class Segments:
     def with_capacity(self, capacity: int) -> "Segments":
         """The same segments launched as `capacity` work items.
 
-        The items past ``num_items`` cover the empty row range at the end,
-        so the kernels write zero partials for them that no segment reads:
-        the sums are unchanged.  A CUDA graph captured on such segments
-        keeps its launch sizes and buffers for any ids of the same length
-        (ff/step_loop.py)."""
+        The items past ``num_items`` cover the empty row range at the end
+        and belong to no segment (owner ``num``): the kernels skip them,
+        and the sums are unchanged.  A CUDA graph captured on such
+        segments keeps its launch sizes and buffers for any ids of the
+        same length (ff/step_loop.py)."""
         extra = capacity - self.num_items
         if extra < 0:
             raise ValueError(f"capacity {capacity} < {self.num_items} "
@@ -111,7 +120,12 @@ class Segments:
         if extra == 0:
             return self
         rows = torch.cat([self.item_rows, self.item_rows[-1:].expand(extra)])
-        return dataclasses.replace(self, item_rows=rows, num_items=capacity)
+        owner = torch.cat([self.owner, self.owner.new_full((extra,),
+                                                           self.num)])
+        return dataclasses.replace(
+            self, item_rows=rows, owner=owner,
+            counters=self.counters.new_zeros(2 * capacity),
+            num_items=capacity)
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -148,10 +162,10 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_alignn_configured", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.alignn_eggc_gated_aggregate.argtypes = [p, ll, p, ll, p, i, p, p,
-                                                    p, i, i, i, p]
+                                                    p, p, p, p, i, i, i, p]
         lib.alignn_eggc_gated_aggregate.restype = i
-        lib.alignn_sorted_segment_sum.argtypes = [p, ll, p, i, p, p, p, i, i,
-                                                  i, p]
+        lib.alignn_sorted_segment_sum.argtypes = [p, ll, p, i, p, p, p, p, p,
+                                                  p, i, i, i, p]
         lib.alignn_sorted_segment_sum.restype = i
         lib._alignn_configured = True
     return lib
@@ -172,7 +186,9 @@ def _check_rows(name: str, x: torch.Tensor, seg: Segments):
         raise ValueError(f"{name}: {x.shape[0]} rows for "
                          f"{seg.ids.shape[0]} segment ids")
     for idx, size in ((seg.item_rows, seg.num_items + 1),
-                      (seg.item_ptr, seg.num + 1)):
+                      (seg.item_ptr, seg.num + 1),
+                      (seg.owner, seg.num_items), (seg.row_ptr, seg.num + 1),
+                      (seg.counters, 2 * seg.num_items)):
         if (idx.device != x.device or idx.dtype != torch.int32
                 or not idx.is_contiguous() or idx.numel() != size):
             raise ValueError(f"{name}: segment work items must be "
@@ -196,8 +212,10 @@ def gated_aggregate_cuda(m: torch.Tensor, bh: torch.Tensor,
             rc = _lib().alignn_eggc_gated_aggregate(
                 m.data_ptr(), m.stride(0), bh.data_ptr(), bh.stride(0),
                 seg.item_rows.data_ptr(), seg.num_items,
-                seg.item_ptr.data_ptr(), partial.data_ptr(), out.data_ptr(),
-                seg.num, f, _DTYPE_CODE[m.dtype], _stream(m))
+                seg.item_ptr.data_ptr(), seg.owner.data_ptr(),
+                seg.row_ptr.data_ptr(), seg.counters.data_ptr(),
+                partial.data_ptr(), out.data_ptr(), seg.num, f,
+                _DTYPE_CODE[m.dtype], _stream(m))
         _raise_on(rc, "gated_aggregate")
         gated_aggregate_cuda.launches += 1
     return out
@@ -217,8 +235,10 @@ def sorted_segment_sum_cuda(x: torch.Tensor, seg: Segments) -> torch.Tensor:
         with torch.cuda.device(x.device):
             rc = _lib().alignn_sorted_segment_sum(
                 x.data_ptr(), x.stride(0), seg.item_rows.data_ptr(),
-                seg.num_items, seg.item_ptr.data_ptr(), partial.data_ptr(),
-                out.data_ptr(), seg.num, f, _DTYPE_CODE[x.dtype], _stream(x))
+                seg.num_items, seg.item_ptr.data_ptr(), seg.owner.data_ptr(),
+                seg.row_ptr.data_ptr(), seg.counters.data_ptr(),
+                partial.data_ptr(), out.data_ptr(), seg.num, f,
+                _DTYPE_CODE[x.dtype], _stream(x))
         _raise_on(rc, "sorted_segment_sum")
         sorted_segment_sum_cuda.launches += 1
     return out

@@ -2,15 +2,27 @@
 """Chip smoke test of the PyTorch/CUDA port (``alignn_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --segments [--root DIR]
+
+``--segments`` runs K1 and K2 alone (phase 2's K1/K2 part at the 512-atom
+L-stage and the sparse training batch's, with eggc.cu's ptxas lines) and
+prints no ``{"ok": ...}`` line; ``--root DIR`` imports the port from the
+checkout at DIR (another commit, for an A/B in one call).
 
 Phases:
 1. set-up: the card's name and power limit, TF32 off, the CUDA kernels
-   built from ``alignn_tpu_torch/csrc`` (build seconds printed);
+   built from ``alignn_tpu_torch/csrc`` (build seconds printed; registers
+   and spills of dense.cu's K5a/K5b and of eggc.cu's kernels);
 2. every kernel of the serving and training paths against its plain
    PyTorch version on the card, in f32, bf16 and f16, with device times (CUDA
    events, median of 20 after warm-up, queued behind a spin kernel) and
    the bound: K1 gated aggregation and K2 sorted segment sum at the sparse
-   L-stage shape of the 512-atom cell below; K3 dense gated aggregation,
+   L-stage shape of the 512-atom cell below, each launched twice
+   (bit-identical), K2 on dyadic inputs equal to its plain version bit
+   for bit, both timed also with L2 evicted before each launch (the
+   share of the bound is the cold time's), with the profiler's device
+   time by kernel, K2's ``torch.segment_reduce`` in each dtype and K2
+   without the last (trash) segment; K3 dense gated aggregation,
    K4 local-pair aggregation, K5a its backward, K5b its second order, K6
    the fused L-stage and K7 its backward at the dense shapes of the same
    cell (edge rows [N*D, 256], pair rows [N*D*D, 256]), and again in
@@ -172,6 +184,7 @@ H100_F32_FLOP_PER_S = 67e12    # f32 outside the tensor cores
 H100_BF16_FLOP_PER_S = 989e12  # bf16 products on the tensor cores (dense)
 H100_TF32_FLOP_PER_S = 495e12  # TF32 products on the tensor cores (dense)
 SPIN_CYCLES_PER_S = 2e9        # a little above the H100's 1.98 GHz boost
+FLUSH_BYTES = 128 << 20        # written before a cold timed run
 DIAMOND = np.array([[0, 0, 0], [0.25, 0.25, 0.25], [0, 0.5, 0.5],
                     [0.25, 0.75, 0.75], [0.5, 0, 0.5], [0.75, 0.25, 0.75],
                     [0.5, 0.5, 0], [0.75, 0.75, 0.25]])
@@ -197,27 +210,47 @@ def smi_line() -> str:
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+def l2_evictor():
+    """A function that writes FLUSH_BYTES (2.7x the H100's 50 MB L2) on
+    the current stream, so that the next kernel finds none of its inputs
+    in L2."""
+    import torch
+
+    buf = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    return lambda: buf.fill_(1.0)
+
+
+def cuda_ms(fn, reps: int = 20, warmup: int = 3, cold: bool = False
+            ) -> float:
     """Median device time of fn() over `reps` runs (CUDA events).
 
     The timed runs queue up behind a spin kernel that outlasts the host's
     time to enqueue them, so each event pair brackets device work only,
     not the Python wrapper's launch overhead (which exceeds the run time
-    of the smaller kernels).
+    of the smaller kernels).  `cold` evicts L2 (:func:`l2_evictor`) before
+    each run, outside its event pair: the inputs then come from device
+    memory, as the byte bound counts them.
     """
     import torch
 
-    for _ in range(warmup):
+    evict = l2_evictor() if cold else (lambda: None)
+
+    def run():
+        evict()
         fn()
+
+    for _ in range(warmup):
+        run()
     torch.cuda.synchronize()
     t = time.perf_counter()
-    fn()
+    run()
     host_s = time.perf_counter() - t
     torch.cuda.synchronize()
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     torch.cuda._sleep(int((2 * reps * host_s + 1e-3) * SPIN_CYCLES_PER_S))
     for start, end in events:
+        evict()
         start.record()
         fn()
         end.record()
@@ -291,8 +324,72 @@ def compare(out, ref, dtype_name: str, failures: list, what: str) -> dict:
             "tol_rel": TOL[dtype_name]}
 
 
+def segment_shape(seg) -> dict:
+    """What the segment kernels' work depends on: rows, segments, work
+    items, the longest segment, the empty ones, those cut into several
+    items, and the last (a padded batch's trash) segment's rows and
+    items."""
+    lengths = (seg.row_ptr[1:] - seg.row_ptr[:-1]).long()
+    items = (seg.item_ptr[1:] - seg.item_ptr[:-1]).long()
+    nonempty = int((lengths > 0).sum().item())
+    return {"rows": int(seg.ids.shape[0]), "segments": seg.num,
+            "items": seg.num_items,
+            "longest_segment": int(lengths.max().item()),
+            "rows_per_nonempty_segment": int(seg.ids.shape[0])
+            / max(nonempty, 1),
+            "empty_segments": seg.num - nonempty,
+            "multi_item_segments": int((items > 1).sum().item()),
+            "last_segment_rows": int(lengths[-1].item()),
+            "last_segment_items": int(items[-1].item())}
+
+
+def kernel_split(fns, calls: int = 5) -> dict:
+    """Device ms per call of each kernel that the functions `fns` launch
+    (each function once a round, `calls` rounds), with L2 evicted before
+    each call (the evicting fill left out), from one ``torch.profiler``
+    session."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    evict = l2_evictor()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            for fn in fns:
+                evict()
+                fn()
+        torch.cuda.synchronize()
+    by_name, _ = device_ms_by_name(prof)
+    return {name[:120]: ms / calls for name, ms in by_name.items()
+            if "FillFunctor" not in name}
+
+
+def timed(fn, plain, b_ms: float, b_by: str) -> dict:
+    """A kernel's times warm (inputs left in L2 by the previous run) and
+    cold (L2 evicted), its plain version's, its bound and the cold time's
+    share of the bound."""
+    cold = cuda_ms(fn, cold=True)
+    return {"ms": cuda_ms(fn), "cold_ms": cold,
+            "plain_ms": cuda_ms(plain), "bound_ms": b_ms, "bound_by": b_by,
+            "bound_share": b_ms / cold}
+
+
+def library_call(fn) -> dict:
+    """`fn`'s time, or why the library refused it."""
+    try:
+        fn()
+    except (RuntimeError, NotImplementedError) as err:
+        return {"library_ms": None, "library_refused": str(err)[:200]}
+    return {"library_ms": cuda_ms(fn)}
+
+
 def kernel_phase(seg, failures: list):
-    """K1/K2 against their plain versions on segments `seg` ([L] rows)."""
+    """K1/K2 against their plain versions on segments `seg` ([L] rows),
+    each launched twice (bit-identical), timed warm and cold, with the
+    profiler's device time by kernel (``split_ms``: eggc.cu's kernels
+    are named by dtype, K1's with GATED true); K2 also timed without the
+    last segment (a padded batch's trash slot)."""
     import torch
 
     from alignn_tpu_torch.ops import eggc as ek
@@ -300,17 +397,24 @@ def kernel_phase(seg, failures: list):
     dev = seg.ids.device
     rows, n, f = seg.ids.shape[0], seg.num, 256
     gen = torch.Generator(device=dev).manual_seed(0)
-    results = {}
+    results = {"shape": {**segment_shape(seg), "features": f}}
     index_bytes = 4 * (n + 1)      # the kernels read only the CSR pointer
+
+    def twice(fn, what, name):
+        out = fn()
+        if not torch.equal(out, fn()):
+            failures.append(f"{what} [{name}]: two launches differ")
+        return out
 
     # K1 forward, f32, bf16 and f16; backward (f32) through the K2 Function
     m32 = torch.randn(rows, f, device=dev, generator=gen)
     bh32 = torch.randn(rows, f, device=dev, generator=gen)
-    k1 = {}
+    k1, calls = {}, []
     for dtype in kernel_dtypes():
         name = str(dtype).split(".")[1]
         m, bh = m32.to(dtype), bh32.to(dtype)
-        h = ek.gated_aggregate_cuda(m, bh, seg)
+        h = twice(lambda: ek.gated_aggregate_cuda(m, bh, seg),
+                  "K1 eggc_gated_aggregate", name)
         ref = ek.gated_aggregate_plain(m, bh, seg)
         torch.cuda.synchronize()
         es = m.element_size()
@@ -318,12 +422,12 @@ def kernel_phase(seg, failures: list):
         # add and divide per output
         b_ms, b_by = bound(2 * rows * f * es + index_bytes + n * f * es,
                            7.0 * rows * f + 2.0 * n * f)
+        calls.append(lambda m=m, bh=bh: ek.gated_aggregate_cuda(m, bh, seg))
         k1[name] = {
             **compare(h, ref, name, failures, "K1 eggc_gated_aggregate"),
-            "ms": cuda_ms(lambda: ek.gated_aggregate_cuda(m, bh, seg)),
-            "plain_ms": cuda_ms(lambda: ek.gated_aggregate_plain(m, bh,
-                                                                 seg)),
-            "bound_ms": b_ms, "bound_by": b_by}
+            **timed(calls[-1],
+                    lambda: ek.gated_aggregate_plain(m, bh, seg),
+                    b_ms, b_by)}
     g = torch.randn(n, f, device=dev, generator=gen)
     grads, bwd_ms = [], []
     for fn in (ek.gated_aggregate, ek.gated_aggregate_plain):
@@ -344,28 +448,48 @@ def kernel_phase(seg, failures: list):
     results["K1"] = k1
 
     # K2: dyadic inputs (multiples of 1/16 in [-4, 4]) make every f32
-    # partial sum exact, so the check does not depend on the summation
-    # order (index_add_ on the card adds with atomics, in any order)
+    # partial sum exact, so the kernel must equal the plain version bit
+    # for bit whatever the summation order (index_add_ on the card adds
+    # with atomics, in any order)
     x32 = torch.randint(-64, 65, (rows, f), device=dev,
                         generator=gen).float() / 16
     lengths = (seg.row_ptr[1:] - seg.row_ptr[:-1]).long()
+    trash = int(seg.row_ptr[-2].item())     # rows before the last segment
+    seg_nt = ek.Segments.from_sorted(seg.ids[:trash], n)
     k2 = {}
     for dtype in kernel_dtypes():
         name = str(dtype).split(".")[1]
         x = x32.to(dtype)
-        out = ek.sorted_segment_sum_cuda(x, seg)
+        out = twice(lambda: ek.sorted_segment_sum_cuda(x, seg),
+                    "K2 sorted_segment_sum", name)
         ref = ek.sorted_segment_sum_plain(x, seg)
         torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            failures.append(f"K2 sorted_segment_sum [{name}]: not equal to "
+                            f"the plain version on dyadic inputs")
         es = x.element_size()
         b_ms, b_by = bound(rows * f * es + index_bytes + n * f * es,
                            1.0 * rows * f)
+        xt = x[:trash]
+        nt_ms, nt_by = bound(trash * f * es + index_bytes + n * f * es,
+                             1.0 * trash * f)
+        calls.append(lambda x=x: ek.sorted_segment_sum_cuda(x, seg))
         k2[name] = {
             **compare(out, ref, name, failures, "K2 sorted_segment_sum"),
-            "ms": cuda_ms(lambda: ek.sorted_segment_sum_cuda(x, seg)),
-            "plain_ms": cuda_ms(lambda: ek.sorted_segment_sum_plain(x, seg)),
-            "bound_ms": b_ms, "bound_by": b_by}
-    k2["float32"]["library_ms"] = cuda_ms(
-        lambda: torch.segment_reduce(x32, "sum", lengths=lengths, axis=0))
+            "exact": bool(torch.equal(out, ref)),
+            **timed(calls[-1],
+                    lambda: ek.sorted_segment_sum_plain(x, seg),
+                    b_ms, b_by),
+            **library_call(lambda: torch.segment_reduce(
+                x, "sum", lengths=lengths, axis=0)),
+            "without_last_segment": {
+                "rows": trash,
+                "cold_ms": cuda_ms(lambda: ek.sorted_segment_sum_cuda(
+                    xt, seg_nt), cold=True),
+                "bound_ms": nt_ms, "bound_by": nt_by}}
+    split = kernel_split(calls)
+    k1["split_ms"] = {k: v for k, v in split.items() if ", true>" in k}
+    k2["split_ms"] = {k: v for k, v in split.items() if ", false>" in k}
     results["K2"] = k2
     return results
 
@@ -572,32 +696,42 @@ def fused_kernel_phase(batch, failures: list):
     return results
 
 
-def k5_ptxas(log: str) -> list:
-    """Registers, stack and spills of dense.cu's K5a/K5b kernels, from its
-    ``nvcc -Xptxas -v`` build log, one entry per compiled instance."""
-    out, entry, name, props = [], None, "", ""
+def ptxas_kernels(log: str) -> list:
+    """Registers, stack and spills of every kernel of a library, from its
+    ``nvcc -Xptxas -v`` build log, one entry per compiled instance (the
+    mangled name carries the template arguments)."""
+    out, entry, props = [], None, ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            name = line.split("'")[1]
-            entry = None
-            for kind in ("pair_bwd2_slab", "pair_bwd_slab", "pair_bwd2_2pass",
-                         "pair_bwd_2pass"):
-                if kind in name:
-                    vec = name.split(kind)[1].split("Li")[1].split("E")[0]
-                    entry = {"kernel": kind, "vec": int(vec),
-                             "dtype": "bfloat16" if "bfloat16" in name
-                             else "float32"}
-                    out.append(entry)
-                    break
+            entry = {"kernel": line.split("'")[1]}
+            out.append(entry)
         elif "Function properties for" in line:
             props = line.split("Function properties for")[1].strip()
-        elif entry is not None and "spill stores" in line and props == name:
+        elif entry is not None and "spill stores" in line and \
+                props == entry["kernel"]:
             nums = [int(w) for w in line.replace(",", " ").split()
                     if w.isdigit()]
             entry.update(stack_bytes=nums[0], spill_store_bytes=nums[1],
                          spill_load_bytes=nums[2])
         elif entry is not None and "Used" in line:
             entry["registers"] = int(line.split("Used")[1].split()[0])
+    return out
+
+
+def k5_ptxas(log: str) -> list:
+    """:func:`ptxas_kernels` of dense.cu's K5a/K5b kernels, named by kind,
+    vector width and dtype."""
+    out = []
+    for entry in ptxas_kernels(log):
+        name = entry.pop("kernel")
+        for kind in ("pair_bwd2_slab", "pair_bwd_slab", "pair_bwd2_2pass",
+                     "pair_bwd_2pass"):
+            if kind in name:
+                vec = name.split(kind)[1].split("Li")[1].split("E")[0]
+                out.append({"kernel": kind, "vec": int(vec),
+                            "dtype": "bfloat16" if "bfloat16" in name
+                            else "float32", **entry})
+                break
     return out
 
 
@@ -1058,9 +1192,7 @@ def train_phase(weights, graphs, failures: list):
         else:
             # K1/K2 at the sparse batch's L-stage (rows = its L-edges)
             seg = batch.lg_index.dst
-            sparse_lstage = {"shape": {"rows": int(seg.ids.shape[0]),
-                                       "segments": seg.num, "features": 256},
-                             **kernel_phase(seg, failures)}
+            sparse_lstage = kernel_phase(seg, failures)
             del seg
             torch.cuda.empty_cache()
         rows[layout], first[layout], launch_runs[layout] = train_run(
@@ -3297,13 +3429,51 @@ def fused_slice(new_dense_calc, drows, cpu_calc, failures: list):
     return frows, launches
 
 
+def segments_probe() -> int:
+    """``--segments``: K1 and K2 alone, at the 512-atom L-stage and the
+    sparse training batch's (:func:`kernel_phase`), with eggc.cu's ptxas
+    lines; no ``{"ok": ...}`` line."""
+    import torch
+
+    import alignn_tpu_torch
+    from alignn_tpu_torch import _build
+    from alignn_tpu_torch.ff.calculator import Calculator
+    from alignn_tpu_torch.graph.batch import BucketSpec, batch_graphs
+
+    print(smi_line(), flush=True)
+    t = time.perf_counter()
+    _build.build_all()
+    emit({"phase": "build", "seconds": time.perf_counter() - t,
+          "package": os.path.dirname(alignn_tpu_torch.__file__)})
+    emit({"phase": "ptxas_eggc",
+          "kernels": ptxas_kernels(_build.build_log("eggc"))})
+    failures: list = []
+    calc = Calculator(path=MODEL_DIR)
+    g = calc.graph_for(rattled_supercell(4))
+    batch = batch_graphs([g], calc.bucket_for(g), calc.device)
+    emit({"phase": "segments", "site": "si512_rattled lg dst",
+          **kernel_phase(batch.lg_index.dst, failures)})
+    gs = rocksalt_b64()
+    batch = batch_graphs(gs, BucketSpec.tight_for_batch(gs), calc.device)
+    emit({"phase": "segments", "site": "dense_rocksalt_b64 sparse lg dst",
+          **kernel_phase(batch.lg_index.dst, failures)})
+    for msg in failures:
+        print(f"chip_smoke FAILED: {msg}", file=sys.stderr)
+    return 1 if failures else 0
+
+
 def main() -> int:
     import torch
 
+    args = sys.argv[1:]
+    if "--root" in args:   # import the port from another checkout
+        sys.path.insert(0, os.path.abspath(args[args.index("--root") + 1]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU",
               file=sys.stderr)
         return 2
+    if "--segments" in args:
+        return segments_probe()
     from alignn_tpu_torch import _build
     from alignn_tpu_torch.ff.calculator import Calculator
     from alignn_tpu_torch.graph.batch import batch_graphs
@@ -3320,6 +3490,8 @@ def main() -> int:
                     for ln in log.splitlines() if "Used" in ln]})
     failures: list = []
     emit({"phase": "ptxas_k5", "kernels": k5_ptxas(_build.build_log("dense"))})
+    eggc_ptxas = ptxas_kernels(_build.build_log("eggc"))
+    emit({"phase": "ptxas_eggc", "kernels": eggc_ptxas})
     from alignn_tpu_torch.ops import dense as dk
 
     # dense.cu's sigmoid (a select below -88.75) against the exact one on
@@ -3346,13 +3518,9 @@ def main() -> int:
     calc = new_calc()
     g = calc.graph_for(rattled_supercell(4))
     batch = batch_graphs([g], calc.bucket_for(g), calc.device)
-    seg = batch.lg_index.dst
-    shape = {"rows": int(seg.ids.shape[0]), "segments": seg.num,
-             "features": calc.model.cfg.hidden_features,
-             "longest_segment": int((seg.row_ptr[1:] - seg.row_ptr[:-1])
-                                    .max().item())}
-    kernels = kernel_phase(seg, failures)
-    del batch, seg
+    kernels = kernel_phase(batch.lg_index.dst, failures)
+    shape = kernels.pop("shape")
+    del batch
     dcalc = new_dense_calc()
     dbatch = dcalc.batch_for(dcalc.graph_for(rattled_supercell(4)))
     if not dbatch.dense_D:
@@ -3550,7 +3718,12 @@ def main() -> int:
             **({"at_envelope_si512": envelope_k2} if key == "K2" else {}),
             **({"at_train_sparse_lstage": {
                 "shape": train_kernels["sparse_lstage"]["shape"],
-                **train_kernels["sparse_lstage"][key]}}
+                **train_kernels["sparse_lstage"][key]},
+                "cold_ms": f32["cold_ms"], "bound_share": f32["bound_share"],
+                "split_ms": r["split_ms"],
+                # the kernel's instances: eggc.cu's GATED template flag
+                "ptxas": [e for e in eggc_ptxas if
+                          ("Lb1E" if key == "K1" else "Lb0E") in e["kernel"]]}
                if key in ("K1", "K2") else {}),
             **({"host_us": f32["host_us"],
                 "library_host_us": f32["library_host_us"],

@@ -306,8 +306,9 @@ def test_step_loop_reuses_a_batch_of_the_same_signature():
 
 def test_item_capacity_pads_with_empty_items():
     """Segments padded to their most possible work items: the extra items
-    are empty row ranges at the end, the pointers unchanged, and the bound
-    holds for random and for one-segment ids."""
+    are empty row ranges at the end that belong to no segment (owner
+    num), the pointers unchanged, the arrival counters 2 an item and 0,
+    and the bound holds for random and for one-segment ids."""
     from alignn_tpu_torch.ops.eggc import CHUNK_ROWS, Segments
 
     rng = np.random.default_rng(2)
@@ -323,6 +324,9 @@ def test_item_capacity_pads_with_empty_items():
         assert torch.equal(big.item_rows[:seg.num_items + 1], seg.item_rows)
         assert (big.item_rows[seg.num_items:] == len(ids)).all()
         assert torch.equal(big.item_ptr, seg.item_ptr)
+        assert torch.equal(big.owner[:seg.num_items], seg.owner)
+        assert (big.owner[seg.num_items:] == num).all()
+        assert big.counters.shape == (2 * cap,) and not big.counters.any()
         assert seg.with_capacity(seg.num_items) is seg
         with pytest.raises(ValueError, match="capacity"):
             seg.with_capacity(seg.num_items - 1)

@@ -66,6 +66,37 @@ def test_segment_work_items(lengths):
             assert rows[ptr[n + 1]] == row_ptr[n + 1]
 
 
+def _items_numpy(lengths):
+    """(item -> segment map, item count) of segments of these lengths,
+    built in numpy: ceil(length / CHUNK_ROWS) items a segment."""
+    chunks = -(-np.asarray(lengths, dtype=np.int64) // tk.CHUNK_ROWS)
+    return np.repeat(np.arange(len(lengths)), chunks), int(chunks.sum())
+
+
+@pytest.mark.parametrize("lengths", [[0, 3, 0, 300, 128, 129, 0],
+                                     [1] * 40, [0, 0], [1000],
+                                     [0, 4096, 4097, 0, 20000, 1]])
+def test_segment_owner_and_counters(lengths):
+    """The item -> segment map and the zeroed arrival counters, before
+    and after padding to the most work items: padding items belong to no
+    segment (owner num) and the counters grow to 2 per item, all 0."""
+    ids = np.repeat(np.arange(len(lengths)), lengths)
+    seg = _seg(ids, len(lengths))
+    owner, num_items = _items_numpy(lengths)
+    assert seg.num_items == num_items
+    assert seg.owner.dtype == seg.counters.dtype == torch.int32
+    np.testing.assert_array_equal(seg.owner.numpy(), owner)
+    np.testing.assert_array_equal(seg.counters.numpy(),
+                                  np.zeros(2 * num_items))
+    cap = seg.max_items() + 3
+    big = seg.with_capacity(cap)
+    np.testing.assert_array_equal(
+        big.owner.numpy(),
+        np.concatenate([owner, np.full(cap - num_items, len(lengths))]))
+    np.testing.assert_array_equal(big.counters.numpy(), np.zeros(2 * cap))
+    assert big.counters.data_ptr() != seg.counters.data_ptr()
+
+
 def test_segments_reject_out_of_range_ids():
     with pytest.raises(ValueError, match="lie in"):
         _seg(np.array([0, 1, 5]), 3)
