@@ -36,6 +36,9 @@ whose ``gated_aggregate_bwd`` is opt-in and has no kernel.
 
 All four kernels are in ``csrc/dense.cu``.  K3 runs one thread per
 (node, 16-byte feature lane), which walks the node's D rows in order.
+K4 runs persistent blocks whose threads each stream the (row, s) words
+of their rows two words ahead of the sigmoids, with the exact sigmoid's
+reciprocal taken on its fast path a word at a time (bit-identical).
 K5a and K5b stage a node's pair rows in shared
 memory once (the slab path) and keep their first, two-pass design for D
 too large for a slab (:func:`pair_bwd_occupancy` reads which path and
@@ -207,8 +210,9 @@ ERR_SMEM = -1   # kErrSmem in dense.cu: D too large for a block
 
 def _raise_on_pair(rc: int, name: str, D: int):
     """_raise_on, with a clear error where dense.cu found D too large for
-    the shared memory of one K4/K5a/K5b block (K4 stages one [D, 128] f32
-    plane; K5a/K5b a [D*D, W] slab or, past it, 3 and 6 [D, 128] planes)."""
+    the shared memory of one K4/K5a/K5b block (K4 takes the D of one
+    [D, 128] f32 plane, though it stages none; K5a/K5b a [D*D, W] slab
+    or, past it, 3 and 6 [D, 128] planes)."""
     if rc == ERR_SMEM:
         raise ValueError(f"{name}: D = {D} needs more shared memory per "
                          f"block than the card allows")
@@ -355,8 +359,10 @@ def pair_bwd_occupancy(kernel: str, D: int, f: int,
 def sigmoid_mismatches(first: int = 0, count: int = 1 << 32) -> int:
     """On the current card: how many of the f32 bit patterns first ..
     first + count - 1 give a different bit pattern from dense.cu's
-    sigmoid (the select below -88.75) than from the exact 1 / (1 +
-    exp(-x)).  The default range is every f32."""
+    sigmoid (the select below -88.75), or from K4's word-at-a-time
+    sigmoid (the reciprocal's fast path where no element needs the slow
+    one), than from the exact 1 / (1 + exp(-x)).  The default range is
+    every f32."""
     hits = torch.zeros(1, dtype=torch.int64, device="cuda")
     rc = _lib().alignn_dense_sigmoid_mismatches(first, count,
                                                 hits.data_ptr(),

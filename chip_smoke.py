@@ -3,10 +3,15 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --segments [--root DIR]
+    python3 chip_smoke.py --pairs [--steps] [--root DIR]
 
 ``--segments`` runs K1 and K2 alone (phase 2's K1/K2 part at the 512-atom
-L-stage and the sparse training batch's, with eggc.cu's ptxas lines) and
-prints no ``{"ok": ...}`` line; ``--root DIR`` imports the port from the
+L-stage and the sparse training batch's, with eggc.cu's ptxas lines);
+``--pairs`` runs K4 alone at the same two dense shapes (warm and cold,
+the profiler's split, ptxas, the SASS of its inner loop, the SM clock,
+a sha256 of each output), with ``--steps`` also the device time of the
+dense train step (f32, bf16) and of the dense MD chunk.  Neither prints
+an ``{"ok": ...}`` line; ``--root DIR`` imports the port from the
 checkout at DIR (another commit, for an A/B in one call).
 
 Phases:
@@ -158,7 +163,9 @@ Phases:
 
 K3 is also launched twice at both dense shapes (bit-identical), with its
 fully masked (padded) nodes exactly 0 and one fill of its output timed
-beside it; every dense kernel's entry carries its share of the bound.
+beside it; K3, K4, K5a and K5b are timed warm and cold (L2 evicted) at
+both, and every dense kernel's entry carries its share of the bound (of
+the cold time where there is one).
 
 Prints JSON lines; the last line is ``{"ok": true, "device": {...}}``.
 Exits non-zero, without that line, on any failed check, and when no CUDA
@@ -496,8 +503,9 @@ def kernel_phase(seg, failures: list):
 
 def dense_kernel_phase(batch, failures: list):
     """K3/K4/K5a/K5b against their plain versions at the dense shapes of
-    `batch`, with its real slot masks folded into random logits, and
-    their share of the bound; K3 and K5a/K5b also launched twice
+    `batch`, with its real slot masks folded into random logits, timed
+    warm and cold (:func:`timed`: the share of the bound is the cold
+    time's); K3 and K5a/K5b also launched twice
     (bit-identical), K3 with its fully masked (padded) nodes exactly 0 and
     the time of one fill of its output beside it, K5a/K5b with their
     launch plan read on the card (``blocks_per_sm``, ``smem_bytes``,
@@ -597,12 +605,9 @@ def dense_kernel_phase(batch, failures: list):
             del got, ref
             b_ms, b_by = bound(nbytes, ops)
             del m, m2
-            ms = cuda_ms(lambda: kern(*args))
-            out[name] = {**err, "ms": ms,
-                         "plain_ms": cuda_ms(lambda: plain(*args)),
-                         "bound_ms": b_ms, "bound_by": b_by,
-                         "bound_share": b_ms / ms, "library_ms": None,
-                         **occupancy}
+            out[name] = {**err, **timed(lambda: kern(*args),
+                                        lambda: plain(*args), b_ms, b_by),
+                         "library_ms": None, **occupancy}
             del args
         results[key] = out
     return results
@@ -3462,6 +3467,231 @@ def segments_probe() -> int:
     return 1 if failures else 0
 
 
+def digest(x) -> str:
+    """sha256 of a tensor's bytes, to show bit-identity across calls."""
+    import hashlib
+
+    import torch
+
+    return hashlib.sha256(x.contiguous().view(-1).view(
+        torch.uint8).cpu().numpy().tobytes()).hexdigest()
+
+
+class SmClock:
+    """The SM clock (MHz) that ``nvidia-smi`` reads every 100 ms while the
+    ``with`` body runs: its median and maximum."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--id=0", "--query-gpu=clocks.sm",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out = self.proc.communicate(timeout=30)[0]
+        mhz = [float(w) for w in out.split() if w.strip().isdigit()]
+        self.mhz = {"median": float(np.median(mhz)) if mhz else None,
+                    "max": max(mhz) if mhz else None, "samples": len(mhz)}
+
+
+def sass_loops(lib: str, kernel: str) -> list:
+    """For each instance of `kernel` in the library `lib` (``cuobjdump
+    -sass``): the innermost loop with the most ``MUFU.EX2`` (one a
+    sigmoid), its instructions (NOPs left out) and their count per
+    element (over the loop's EX2s), and its opcode histogram.  The count
+    is static: code the loop body runs once a row is counted as if it
+    ran every iteration."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    out = []
+    for part in text.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        if kernel not in name:
+            continue
+        code = []
+        for line in part.splitlines():
+            m = re.search(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+            if m:
+                ins = re.sub(r"^@!?U?P[T0-9]+\s+", "", m.group(2).strip())
+                code.append((int(m.group(1), 16), ins.split()[0], ins))
+        loops = []   # backward branches: (target, branch) address ranges
+        for addr, op, ins in code:
+            tgt = re.search(r"0x[0-9a-f]+", ins) if op.startswith("BRA") \
+                else None
+            if tgt is not None and int(tgt.group(0), 16) <= addr:
+                loops.append((int(tgt.group(0), 16), addr))
+        inner = [lo for lo in loops if not any(
+            o != lo and lo[0] <= o[0] and o[1] <= lo[1] for o in loops)]
+        best = None
+        for lo, hi in inner:
+            body = [op for a, op, _ in code if lo <= a <= hi and op != "NOP"]
+            ex2 = body.count("MUFU.EX2")
+            if ex2 and (best is None or ex2 > best["ex2"]):
+                hist: dict = {}
+                for op in body:
+                    hist[op] = hist.get(op, 0) + 1
+                best = {"instructions": len(body), "ex2": ex2,
+                        "per_element": len(body) / ex2,
+                        "mufu": sum(v for k, v in hist.items()
+                                    if k.startswith("MUFU")),
+                        "opcodes": dict(sorted(hist.items(),
+                                               key=lambda kv: -kv[1]))}
+        out.append({"kernel": name, "instructions": len(code),
+                    "inner_loop": best})
+    return out
+
+
+def pair_probe(batch, failures: list, sass: list, clock_mhz: float) -> dict:
+    """K4 alone at the dense shapes of `batch` (its real slot masks
+    folded into random logits, F 256), in f32, bf16 and f16: against its
+    plain version, fully masked (j, t) rows exactly 0, two launches
+    bit-identical, a sha256 of the output; warm and cold ms, the cold
+    time's share of the byte bound, the profiler's device time by kernel
+    (cold), and the issue floor of the kernel instance's inner loop (its
+    static SASS count per element, which counts branches not taken too,
+    x elements over 128 instructions a clock on each SM at
+    `clock_mhz`)."""
+    import torch
+
+    from alignn_tpu_torch.ops import dense as dk
+
+    dev, D = batch.r.device, batch.dense_D
+    n, f = batch.z.shape[0], 256
+    rows, pairs = n * D, n * D * D
+    gen = torch.Generator(device=dev).manual_seed(4)
+    m2_raw = torch.randn(pairs, f, device=dev, generator=gen)
+    bh32 = torch.randn(rows, f, device=dev, generator=gen)
+    empty = batch.lg_mask.reshape(rows, D).sum(dim=1) == 0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    res = {"shape": dense_shape(batch), "masked_rows": int(empty.sum())}
+    calls = []
+    for dtype in kernel_dtypes():
+        name = str(dtype).split(".")[1]
+        es = torch.tensor([], dtype=dtype).element_size()
+        m2 = dk.fold_mask(m2_raw.to(dtype), batch.lg_mask)
+        bh = bh32.to(dtype)
+        got = dk.dense_pair_aggregate_cuda(m2, bh, D)
+        again = dk.dense_pair_aggregate_cuda(m2, bh, D)
+        ref = dk.dense_pair_aggregate_plain(m2, bh, D)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            failures.append(f"K4 [{name}]: two launches differ")
+        if not bool((got[empty] == 0).all()) or \
+                not bool(torch.isfinite(got.float()).all()):
+            failures.append(f"K4 [{name}]: a fully masked row is not "
+                            f"exactly 0, or h is not finite")
+        err = compare(got, ref, name, failures, "K4 dense_pair_aggregate")
+        b_ms, b_by = bound((pairs + 2 * rows) * f * es,
+                           7.0 * pairs * f + 2.0 * rows * f)
+        calls.append(lambda m2=m2, bh=bh: dk.dense_pair_aggregate_cuda(
+            m2, bh, D))
+        tag = {"float32": "IfLi4E", "bfloat16": "I13__nv_bfloat16Li8E",
+               "float16": "I6__halfLi8E"}[name]   # mangled instance
+        loop = next((s["inner_loop"] for s in sass if tag in s["kernel"]
+                     and s["inner_loop"]), None)
+        floor = None if loop is None or not clock_mhz else \
+            loop["per_element"] * pairs * f / (128.0 * sms) / \
+            (clock_mhz * 1e3)
+        res[name] = {**err, "sha256": digest(got),
+                     **timed(calls[-1], lambda m2=m2, bh=bh:
+                             dk.dense_pair_aggregate_plain(m2, bh, D),
+                             b_ms, b_by),
+                     "issue_floor_static_ms": floor}
+        del got, again, ref
+    res["split_ms"] = kernel_split(calls)
+    return res
+
+
+def pairs_probe(steps: bool) -> int:
+    """``--pairs``: K4 alone at the si512 dense shape (N 768, D 18) and
+    bench.py's b64 (N 512, D 13) (:func:`pair_probe`), with dense.cu's
+    ptxas lines and the SASS of K4's inner loop; with ``--steps`` also
+    the device time of one profiled dense train step (bench.py's, f32
+    and bf16) and of the dense MD chunk's replayed step at si512
+    (:func:`md_chunk_phase`).  No ``{"ok": ...}`` line."""
+    import torch
+
+    import alignn_tpu_torch
+    from alignn_tpu_torch import _build
+    from alignn_tpu_torch.ff.calculator import Calculator
+
+    print(smi_line(), flush=True)
+    t = time.perf_counter()
+    libs = _build.build_all()
+    emit({"phase": "build", "seconds": time.perf_counter() - t,
+          "package": os.path.dirname(alignn_tpu_torch.__file__)})
+    emit({"phase": "ptxas_k4", "kernels": [
+        e for e in ptxas_kernels(_build.build_log("dense"))
+        if "pair_kernel" in e["kernel"]]})
+    sass = sass_loops(str(libs["dense"]), "pair_kernel")
+    emit({"phase": "sass_k4", "kernels": sass})
+    failures: list = []
+    from alignn_tpu_torch.ops import dense as dk
+
+    mismatches = dk.sigmoid_mismatches()
+    emit({"phase": "sigmoid_select", "f32_patterns": 1 << 32,
+          "mismatches": mismatches})
+    if mismatches:
+        failures.append(f"dense.cu sigmoid differs from 1 / (1 + exp(-x)) "
+                        f"on {mismatches} f32 bit patterns")
+    dev = torch.device("cuda")
+    base = Calculator(path=MODEL_DIR)
+    dcalc = Calculator(model=base.model, config={
+        **base.config, "use_canonize": True}, dense=True)
+    batches = {"si512_rattled": dcalc.batch_for(dcalc.graph_for(
+        rattled_supercell(4))),
+        "dense_rocksalt_b64": train_batches(rocksalt_b64(), dev)["dense"]}
+    # the clock under load: K4 f32 at si512, back to back
+    b = batches["si512_rattled"]
+    x = torch.randn(b.lg_mask.shape[0], 256, device=dev)
+    y = torch.randn(b.edge_mask.shape[0], 256, device=dev)
+    with SmClock() as clock:
+        t = time.perf_counter()
+        while time.perf_counter() - t < 2.0:
+            for _ in range(50):
+                dk.dense_pair_aggregate_cuda(x, y, b.dense_D)
+            torch.cuda.synchronize()
+    del x, y
+    emit({"phase": "sm_clock_under_k4", **clock.mhz})
+    for site, batch in batches.items():
+        emit({"phase": "pairs", "site": site,
+              **pair_probe(batch, failures, sass, clock.mhz["median"])})
+    if steps:
+        from alignn_tpu_torch.nn.models import (ALIGNNAtomWise,
+                                                ALIGNNAtomWiseConfig,
+                                                init_parameters)
+
+        weights = init_parameters(ALIGNNAtomWise(ALIGNNAtomWiseConfig(
+            **TRAIN_CFG)), torch.Generator().manual_seed(0)).state_dict()
+        for dtype in (None, torch.bfloat16):
+            row, _first, per_step = train_run(
+                weights, batches["dense_rocksalt_b64"], "dense", failures,
+                steps=4, dtype=dtype)
+            emit({"phase": "pairs_step", "run": "train dense "
+                  + ("float32" if dtype is None else "bfloat16"),
+                  "device_busy_ms": row["device_busy_ms"],
+                  "ms_per_step": row["ms_per_step"],
+                  "K4_per_step": per_step["K4"]})
+        del batches
+        torch.cuda.empty_cache()
+        row = md_chunk_phase(base.model, rattled_supercell(4), "dense",
+                             dict(cutoff=8.0, neighbor_strategy="k-nearest"),
+                             failures)
+        emit({"phase": "pairs_step", "run": "md chunk dense si512",
+              "device_busy_ms": row["device_busy_ms_per_step"],
+              "ms_per_step": row["captured_ms_per_step"],
+              "K4_per_step": row["launches_per_step"]["K4"]})
+    for msg in failures:
+        print(f"chip_smoke FAILED: {msg}", file=sys.stderr)
+    return 1 if failures else 0
+
+
 def main() -> int:
     import torch
 
@@ -3474,6 +3704,8 @@ def main() -> int:
         return 2
     if "--segments" in args:
         return segments_probe()
+    if "--pairs" in args:
+        return pairs_probe("--steps" in args)
     from alignn_tpu_torch import _build
     from alignn_tpu_torch.ff.calculator import Calculator
     from alignn_tpu_torch.graph.batch import batch_graphs
@@ -3716,10 +3948,11 @@ def main() -> int:
                if dense else {}),
             **({"backward": r["backward"]} if "backward" in r else {}),
             **({"at_envelope_si512": envelope_k2} if key == "K2" else {}),
+            **({"cold_ms": f32["cold_ms"], "bound_share": f32["bound_share"]}
+               if "cold_ms" in f32 else {}),
             **({"at_train_sparse_lstage": {
                 "shape": train_kernels["sparse_lstage"]["shape"],
                 **train_kernels["sparse_lstage"][key]},
-                "cold_ms": f32["cold_ms"], "bound_share": f32["bound_share"],
                 "split_ms": r["split_ms"],
                 # the kernel's instances: eggc.cu's GATED template flag
                 "ptxas": [e for e in eggc_ptxas if
