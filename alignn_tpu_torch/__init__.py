@@ -10,7 +10,13 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
+import threading
 from typing import Optional, Union
+
+# Held by a helper thread around its device work (the loaders' prefetch)
+# and by a CUDA-graph capture (ff/step_loop.py), which no other thread may
+# interleave device work with.
+DEVICE_WORK_LOCK = threading.Lock()
 
 
 def resolve_device(device: Optional[Union[str, "torch.device"]] = None

@@ -8,8 +8,12 @@ builds the loaders (graph cache under ``<output_dir>/graph_cache`` with
 ``use_cache``) and runs :func:`~alignn_tpu_torch.train.trainer.
 train_model` on ``--device`` (``cuda`` by default).  ``--resume auto``
 continues from ``<output_dir>/restart.mpk``; ``--restart_model_path``
-starts from a weights file.  Data parallelism (``--devices`` > 1) and
-``--profile`` are not ported yet and raise.
+starts from a weights file.  ``--profile DIR`` trains nothing: it builds
+the model, its train state and the compiled train step on the first
+training batch, profiles that step (:func:`~alignn_tpu_torch.profiler.
+profile_step`: 2 wait, 2 warm-up and 6 traced steps, the trace in
+``DIR/trace.json``) and prints and returns the result.  Data parallelism
+(``--devices`` > 1) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -53,10 +57,6 @@ def train_for_folder(
         raise NotImplementedError(
             "--devices > 1 (data parallelism) is not ported yet "
             '(ROADMAP.md §1 "Multi-GPU")')
-    if profile:
-        raise NotImplementedError(
-            '--profile is not ported yet (ROADMAP.md §1 "Remaining '
-            'modules")')
     if not os.path.exists(config_name):
         raise FileNotFoundError(
             f"config file not found: {config_name} "
@@ -134,6 +134,8 @@ def train_for_folder(
         lg_cutoff=config.lg_cutoff,
         device=device,
     )
+    if profile:
+        return _profile(config, tr, profile)
     restart_state_path = None
     if resume:
         restart_state_path = (os.path.join(config.output_dir, "restart.mpk")
@@ -147,6 +149,39 @@ def train_for_folder(
                           restart_state_path=restart_state_path)
     summary["graph_stats"] = tr.graph_stats
     return summary
+
+
+def _profile(config: TrainingConfig, train_loader, logdir: str
+             ) -> Dict[str, Any]:
+    """One compiled train step profiled on the first training batch, as
+    the trainer would build it (seeded weights in the config's compute
+    dtype, its optimizer and decay mask)."""
+    import torch
+
+    from alignn_tpu_torch.nn.models import init_parameters
+    from alignn_tpu_torch.profiler import profile_step
+    from alignn_tpu_torch.train.optim import build_optimizer
+    from alignn_tpu_torch.train.state import (create_train_state,
+                                              make_train_step)
+    from alignn_tpu_torch.train.trainer import COMPUTE_DTYPES, build_model
+
+    model = init_parameters(
+        build_model(config.model, dtype=COMPUTE_DTYPES[config.dtype]),
+        torch.Generator().manual_seed(config.random_seed or 123))
+    batch = next(iter(train_loader))
+    state = create_train_state(model, batch, build_optimizer(
+        config.optimizer, config.learning_rate, config.weight_decay,
+        model=model))
+    classification = config.classification_threshold is not None or \
+        getattr(config.model, "classification", False)
+    step = make_train_step(model, criterion=config.criterion,
+                           classification=classification)
+    spec = train_loader.spec
+    edges = (spec.n_edges + spec.n_lg_edges) if spec else None
+    result = profile_step(step, state, batch, logdir=logdir,
+                          edges_per_batch=edges)
+    print(result)
+    return result
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -174,8 +209,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "<output_dir>/restart.mpk, or a path")
     p.add_argument("--devices", default=1, type=int,
                    help="data-parallel device count (only 1 is ported)")
-    p.add_argument("--profile", default=None,
-                   help="profile one train step (not ported yet)")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="profile one compiled train step on the first "
+                        "training batch (torch.profiler trace in "
+                        "DIR/trace.json) instead of training")
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (cuda or cpu)")
     return p

@@ -9,8 +9,12 @@ Counterpart of ``BucketedLoader`` and the bucket sizing of
 - shuffling from the seed ``seed + epoch``, the same permutation as JAX's
   (numpy's ``default_rng``), with `drop_last` and a host-strided slice;
 - the static gather windows (``win_*``) of each batch floored so that they
-  only grow over the loader's life (:meth:`BucketedLoader._floor_windows`);
-- a background thread that builds the next batches while the device runs.
+  only grow over the loader's life (:meth:`BucketedLoader._floor_windows`),
+  which bounds the CUDA graphs a compiled step captures for the bucket, as
+  JAX's floor bounds its recompiles;
+- a background thread that builds the next batches while the device runs;
+  it holds :data:`alignn_tpu_torch.DEVICE_WORK_LOCK` while it builds one,
+  so that it pauses while a train step's CUDA graph is captured.
 
 Batches land on the loader's `device`, ``cuda`` unless another is asked
 for (:func:`alignn_tpu_torch.resolve_device`).  Stacking ``num_shards``
@@ -38,7 +42,7 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from alignn_tpu_torch import resolve_device
+from alignn_tpu_torch import DEVICE_WORK_LOCK, resolve_device
 from alignn_tpu_torch.chem.atoms import dumpjson
 from alignn_tpu_torch.data.baseline import (baseline_per_atom,
                                             fit_species_baseline)
@@ -228,7 +232,9 @@ class BucketedLoader:
                 for s in range(n_steps):
                     if stop.is_set():
                         return
-                    q.put(("ok", self._batch_for_step(order, s)))
+                    with DEVICE_WORK_LOCK:    # not during a capture
+                        batch = self._batch_for_step(order, s)
+                    q.put(("ok", batch))
                 q.put(("done", None))
             except BaseException as exc:   # raised again in the consumer
                 q.put(("err", exc))

@@ -106,7 +106,8 @@ def remove_net_torque(cart: torch.Tensor, forces: torch.Tensor,
                         node_graph, g)
     eye = torch.eye(3, dtype=cart.dtype, device=cart.device)
     m = big_s - s[:, None, None] * eye + 1e-8 * eye
-    mu = torch.linalg.solve(m, -tau[..., None])[..., 0]
+    # solve_ex: solve's values without its host-side check (no sync)
+    mu = torch.linalg.solve_ex(m, -tau[..., None])[0][..., 0]
     return forces + torch.cross(r, mu[node_graph], dim=1) * w
 
 
@@ -187,7 +188,9 @@ def ealignn_forward(model: eALIGNNAtomWise, batch: GraphBatch,
         g_frac, g_delta = torch.autograd.grad(energy, (frac, delta),
                                               create_graph=create_graph)
     res["r"] = r = r.detach()
-    inv_lat = torch.linalg.inv(batch.lattice)[batch.node_graph]
+    # inv_ex: the values of inv, without its check on the host (a sync
+    # that a captured train step may not make)
+    inv_lat = torch.linalg.inv_ex(batch.lattice)[0][batch.node_graph]
     total = batch.n_nodes.sum()
     forces = -torch.einsum("ni,nji->nj", g_frac, inv_lat) * total \
         * batch.node_mask[:, None]

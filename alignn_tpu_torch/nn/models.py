@@ -584,7 +584,9 @@ def _pos_deriv_forward(model: ALIGNNAtomWise, batch: GraphBatch,
             * batch.n_nodes.sum()
         (g_frac,) = torch.autograd.grad(energy, frac,
                                         create_graph=create_graph)
-    inv_lat = torch.linalg.inv(batch.lattice)[batch.node_graph]
+    # inv_ex: the values of inv, without its check on the host (a sync
+    # that a captured train step may not make)
+    inv_lat = torch.linalg.inv_ex(batch.lattice)[0][batch.node_graph]
     g_cart = torch.einsum("ni,nji->nj", g_frac, inv_lat)
     res["grad"] = cfg.grad_multiplier * g_cart * batch.node_mask[:, None]
     res["stresses"] = batch.r.new_zeros((batch.graph_mask.shape[0], 3, 3))

@@ -257,7 +257,8 @@ def load_params_with_meta(path: str) -> Tuple[Dict, Dict, Dict[str, Any]]:
 
 
 def _optimizer_to_tree(sd: Dict[str, Any]) -> Dict[str, Any]:
-    """A torch optimizer state dict with str keys and numpy leaves."""
+    """A torch optimizer state dict with str keys and numpy leaves; a
+    group's device-tensor learning rate is written as its float."""
     def conv(v):
         if isinstance(v, torch.Tensor):
             return v.detach().cpu().numpy()
@@ -267,7 +268,9 @@ def _optimizer_to_tree(sd: Dict[str, Any]) -> Dict[str, Any]:
             return [conv(x) for x in v]
         return v
 
-    return conv(sd)
+    groups = [{k: float(v) if k == "lr" and isinstance(v, torch.Tensor)
+               else v for k, v in g.items()} for g in sd["param_groups"]]
+    return conv({**sd, "param_groups": groups})
 
 
 def _optimizer_from_tree(tree: Dict[str, Any]) -> Dict[str, Any]:
@@ -280,6 +283,38 @@ def _optimizer_from_tree(tree: Dict[str, Any]) -> Dict[str, Any]:
     groups = [{k: tuple(v) if k == "betas" else v for k, v in g.items()}
               for g in tree["param_groups"]]
     return {"state": state, "param_groups": groups}
+
+
+# how an optimizer runs, not what it learned: kept from the optimizer
+# that loads a file (a CPU run's file resumes on the card and back)
+_RUN_FLAGS = ("capturable", "fused", "foreach", "differentiable")
+
+
+def _load_optimizer(optimizer: torch.optim.Optimizer,
+                    sd: Dict[str, Any]) -> None:
+    """Load `sd` into `optimizer`, which has taken no step yet: a captured
+    train step reads the optimizer's state tensors, and
+    ``load_state_dict`` replaces them.  Its own run flags and
+    learning-rate tensors stay (each lr tensor takes the file's value in
+    place)."""
+    if optimizer.state:
+        raise ValueError("load the training state before the first train "
+                         "step: the optimizer already holds state")
+    own = optimizer.param_groups
+    saved = sd["param_groups"]
+    if len(saved) != len(own):
+        raise ValueError("the file's optimizer has another number of "
+                         "parameter groups")
+    lrs = [g["lr"] for g in own]
+    optimizer.load_state_dict({**sd, "param_groups": [
+        {**g, **{k: o[k] for k in _RUN_FLAGS if k in o}}
+        for g, o in zip(saved, own)]})
+    for g, lr, s in zip(optimizer.param_groups, lrs, saved):
+        if isinstance(lr, torch.Tensor):
+            lr.fill_(float(s["lr"]))
+            g["lr"] = lr
+        else:
+            g["lr"] = float(s["lr"])
 
 
 def save_train_state(path: str, state, epoch: int,
@@ -296,14 +331,14 @@ def save_train_state(path: str, state, epoch: int,
 
 def load_train_state(path: str, state, with_extra: bool = False):
     """Restore :func:`save_train_state`'s file into `state` (its model and
-    optimizer, in place); returns (state, epoch) or (state, epoch,
-    extra)."""
+    optimizer, in place) before its first step; returns (state, epoch) or
+    (state, epoch, extra)."""
     with open(path, "rb") as f:
         payload = msgpack_restore(f.read())
     state.model.load_state_dict(state_dict_from_flax(
         payload["params"], batch_stats=payload["batch_stats"]))
-    state.optimizer.load_state_dict(
-        _optimizer_from_tree(payload["opt_state"]))
+    _load_optimizer(state.optimizer,
+                    _optimizer_from_tree(payload["opt_state"]))
     state.step = int(payload["step"])
     epoch = int(payload.get("epoch", 0))
     if with_extra:

@@ -7,6 +7,15 @@ transformation is initialised on a parameter tree.  The learning rate is
 host data: :func:`set_lr` writes it into the parameter groups, the way the
 JAX trainer injects the per-epoch OneCycle value.
 
+On the card the optimizer is built to be captured in a CUDA graph with the
+train step (``train/state.py``): the learning rate of each group is a
+one-element f32 tensor on the device that :func:`set_lr` fills in place
+(a captured graph reads it at every replay; a Python float would be baked
+in), AdamW is ``capturable`` (its step counts and bias corrections stay
+on the device) and SGD is ``fused`` (its foreach update would read a
+tensor learning rate on the host).  On the CPU the learning rate stays a
+Python float and the update is torch's default one.
+
 - ``adamw`` is ``torch.optim.AdamW`` (decoupled decay, the update of
   ``optax.adamw``).
 - ``sgd`` is ``torch.optim.SGD`` with momentum 0.9 and coupled decay (the
@@ -65,9 +74,20 @@ class OptimizerSpec:
                        "weight_decay": self.weight_decay if decays else 0.0}
                       for decays in (True, False)
                       if decays in self.decay_mask.values()]
+        device = named[0][1].device if named else torch.device("cpu")
+        if device.type != "cuda":
+            if self.name == "adamw":
+                return torch.optim.AdamW(groups, lr=self.learning_rate)
+            return torch.optim.SGD(groups, lr=self.learning_rate,
+                                   momentum=0.9)
+        for g in groups:
+            g["lr"] = torch.tensor(self.learning_rate, dtype=torch.float32,
+                                   device=device)
         if self.name == "adamw":
-            return torch.optim.AdamW(groups, lr=self.learning_rate)
-        return torch.optim.SGD(groups, lr=self.learning_rate, momentum=0.9)
+            return torch.optim.AdamW(groups, lr=groups[0]["lr"],
+                                     capturable=True)
+        return torch.optim.SGD(groups, lr=groups[0]["lr"], momentum=0.9,
+                               fused=True)
 
 
 def build_optimizer(optimizer: str = "adamw", learning_rate: float = 1e-2,
@@ -82,9 +102,13 @@ def build_optimizer(optimizer: str = "adamw", learning_rate: float = 1e-2,
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
-    """Write the learning rate into every parameter group (host side)."""
+    """Write the learning rate into every parameter group (host side): in
+    place where the group holds it as a device tensor, with no sync."""
     for group in optimizer.param_groups:
-        group["lr"] = float(lr)
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(float(lr))
+        else:
+            group["lr"] = float(lr)
 
 
 def onecycle_lr(max_lr: float, total_steps: int, pct_start: float = 0.3,

@@ -8,10 +8,21 @@ and one optimizer update.  One step of the property
 model (``ALIGNN``) runs its forward in train mode, which moves the
 BatchNorm running statistics once, then ``property_loss`` (NLL over the
 log-probabilities for a classifier); its eval step runs in eval
-mode.  PyTorch runs eagerly, so there is no jit and no donation; the
-data-parallel step (``axis_name``) comes with DDP.  The losses come back
-as tensors on the batch's device: nothing in a step copies to the host
-or waits for the device.
+mode.  The losses come back as tensors on the batch's device: nothing in
+a step copies to the host or waits for the device.
+
+Both steps are compiled as JAX's are jitted: a
+:class:`~alignn_tpu_torch.ff.step_loop.CompiledStep` per step keeps one
+CUDA graph per batch signature (the bucket: segments at their item
+capacity, gather windows at the loader's floor), captured on the card after two
+eager sightings and replayed for every later batch of the bucket; the
+train and eval graphs of a model share one memory pool.  The graph holds
+the addresses of the parameters, their gradients (built once, before any
+capture, and zeroed in place), the optimizer's state and its
+device-tensor learning rate (``train/optim.py``).  A capture or replay
+error raises; ``cuda_graph=False`` runs the eager step, and on the CPU
+the compiled step runs eagerly over the same static batches.  There is
+no donation; the data-parallel step (``axis_name``) comes with DDP.
 """
 
 from __future__ import annotations
@@ -22,6 +33,7 @@ from typing import Callable, Dict, Tuple
 import torch
 from torch import nn
 
+from alignn_tpu_torch.ff.step_loop import CompiledStep
 from alignn_tpu_torch.graph.batch import GraphBatch
 from alignn_tpu_torch.nn.ealignn import eALIGNNAtomWise, ealignn_forward
 from alignn_tpu_torch.nn.layers import MaskedBatchNorm
@@ -88,36 +100,60 @@ def _check_state(state: TrainState, model: nn.Module):
                          "the step was made for")
 
 
-def make_train_step(model: nn.Module, criterion: str = "l1",
-                    classification: bool = False) -> Callable:
-    """(state, batch) -> (state, losses), updating the model in place."""
+def build_grads(model: nn.Module) -> None:
+    """Give every parameter a gradient tensor of its own, once: the step
+    zeroes them in place and the backward accumulates into them, so a
+    captured graph keeps their addresses, and a parameter that this loss
+    does not reach (the last L-stage's pair features) keeps a zero
+    gradient, so that weight decay still applies, as in optax."""
+    for p in model.parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
 
-    def step(state: TrainState, batch: GraphBatch):
-        _check_state(state, model)
-        state.optimizer.zero_grad(set_to_none=True)
+
+def make_train_step(model: nn.Module, criterion: str = "l1",
+                    classification: bool = False,
+                    cuda_graph: bool = True) -> Callable:
+    """(state, batch) -> (state, losses), updating the model in place;
+    compiled per batch signature (``cuda_graph=False``: the eager
+    step)."""
+    optimizer = None   # the state's, bound at its first step
+
+    def fn(batch: GraphBatch):
+        optimizer.zero_grad(set_to_none=False)
         model.train()
         losses, _res = _forward_and_loss(model, batch, criterion,
                                          classification, create_graph=True)
         losses["loss"].backward()
-        for p in model.parameters():
-            if p.grad is None:
-                # unused by this loss (the last L-stage's pair features):
-                # a zero gradient, so that weight decay still applies, as
-                # in optax
-                p.grad = torch.zeros_like(p)
-        state.optimizer.step()
-        state.step += 1
-        return state, {k: v.detach() for k, v in losses.items()}
+        optimizer.step()
+        return {k: v.detach() for k, v in losses.items()}
 
+    compiled = CompiledStep(fn, pool_key=model) if cuda_graph else fn
+
+    def step(state: TrainState, batch: GraphBatch):
+        nonlocal optimizer
+        _check_state(state, model)
+        if optimizer is not state.optimizer:
+            # graphs hold the optimizer's tensors: a new one, new graphs
+            optimizer = state.optimizer
+            if cuda_graph:
+                compiled.clear()
+        build_grads(model)
+        losses = compiled(batch)
+        state.step += 1
+        return state, losses
+
+    step.compiled = compiled if cuda_graph else None
     return step
 
 
 def make_eval_step(model: nn.Module, criterion: str = "l1",
-                   classification: bool = False) -> Callable:
-    """(state, batch) -> (losses, predictions), with no parameter graph."""
+                   classification: bool = False,
+                   cuda_graph: bool = True) -> Callable:
+    """(state, batch) -> (losses, predictions), with no parameter graph;
+    compiled per batch signature (``cuda_graph=False``: eager)."""
 
-    def step(state: TrainState, batch: GraphBatch):
-        _check_state(state, model)
+    def fn(batch: GraphBatch):
         model.eval()
         with torch.no_grad():   # the force pass enables grad on r itself
             losses, res = _forward_and_loss(model, batch, criterion,
@@ -126,4 +162,11 @@ def make_eval_step(model: nn.Module, criterion: str = "l1",
         return ({k: v.detach() for k, v in losses.items()},
                 {k: v.detach() for k, v in res.items()})
 
+    compiled = CompiledStep(fn, pool_key=model) if cuda_graph else fn
+
+    def step(state: TrainState, batch: GraphBatch):
+        _check_state(state, model)
+        return compiled(batch)
+
+    step.compiled = compiled if cuda_graph else None
     return step

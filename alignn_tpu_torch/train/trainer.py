@@ -12,13 +12,17 @@ in ``config.output_dir``:
   ``Test_results.json``, the MAE or ROC AUC, and
   ``prediction_results_{test,train}_set.csv``;
 - early stopping on the validation loss (``n_early_stopping``); on
-  resume the best loss and the patience come back from the history.
+  resume the best loss and the patience come back from the history;
+- ``learning_curve.png`` (:mod:`~alignn_tpu_torch.train.plots`) once the
+  epochs are done, where matplotlib is installed.
 
 The ``.mpk`` weight files are the JAX package's layout, so alignn_tpu
 loads them.  The learning rate of each epoch is ``epoch_lr``'s, written
-into the optimizer on the host.  Each step's losses come to the host in
-one copy, and the result passes copy each batch's outputs in one.  The
-learning-curve plot of the JAX trainer is not ported.
+into the optimizer on the host.  Every train and eval step (the epochs,
+validation, the result and test passes) is a compiled step
+(``train/state.py``): a CUDA graph per bucket on the card.  Each step's
+losses come to the host in one copy, and the result passes copy each
+batch's outputs in one.
 """
 
 from __future__ import annotations
@@ -286,6 +290,12 @@ def train_model(config: TrainingConfig, train_loader: BucketedLoader,
             device=train_loader.device)
         dumpjson(results.per_sample(dump_loader),
                  os.path.join(output_dir, "Train_results.json"))
+    try:
+        from alignn_tpu_torch.train.plots import plot_learning_curve
+
+        plot_learning_curve(output_dir, key="loss", plot_train=True)
+    except Exception as exc:  # no matplotlib must not fail a training run
+        print("learning-curve plot skipped:", exc)
     if test_loader is not None and len(test_loader):
         summary.update(_test_pass(config, classification, results,
                                   test_loader))

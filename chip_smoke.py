@@ -807,6 +807,68 @@ def device_ms_by_name(prof):
     return by_name, count
 
 
+# each wrapper's kernel, as the profiler names it: the symbols of the
+# port's .cu files, which live in anonymous namespaces ("void (anonymous
+# namespace)::segment_kernel<float, 8, true>(...)"); K1/K2 are
+# segment_kernel's GATED true / false instances, K7's call is its tile
+# kernel and four more
+KERNEL_SYMBOLS = (("K1", r"segment_kernel<[^>]*, true>"),
+                  ("K2", r"segment_kernel<[^>]*, false>"),
+                  ("K3", r"gated_kernel\b"), ("K4", r"pair_kernel\b"),
+                  ("K5a", r"pair_bwd_\w*kernel\b"),
+                  ("K5b", r"pair_bwd2_\w*kernel\b"),
+                  ("K6", r"fused_fwd_kernel\b"),
+                  ("K7", r"fused_bwd_tile_kernel\b"),
+                  ("K8", r"gather_kernel\b"))
+
+
+def kernel_id(name: str):
+    """The K id of a profiled kernel's name, or None (a library's)."""
+    import re
+
+    for key, pattern in KERNEL_SYMBOLS:
+        if re.search(r"\(anonymous namespace\)::" + pattern, name):
+            return key
+    return None
+
+
+def kernel_launches_in(prof) -> dict:
+    """Launches of each kernel in a profiled run, counted from the
+    profiler's kernel names: a replayed CUDA graph launches its kernels
+    without their Python wrappers, whose counters do not move."""
+    import torch
+
+    counts = {key: 0 for key, _p in KERNEL_SYMBOLS}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA or \
+                getattr(ev, "is_user_annotation", False):
+            continue
+        key = kernel_id(ev.name)
+        if key is not None:
+            counts[key] += 1
+    return counts
+
+
+def kernel_ms_by_id(by_name: dict) -> dict:
+    """Device ms of each kernel's symbol (K7: its tile kernel) in a
+    profiled run's {name: ms}."""
+    out = {key: 0.0 for key, _p in KERNEL_SYMBOLS}
+    for name, ms in by_name.items():
+        key = kernel_id(name)
+        if key is not None:
+            out[key] += ms
+    return out
+
+
+def host_ops_in(prof) -> int:
+    """Host-side operator events of a profiled run (nested ones too)."""
+    import torch
+
+    return sum(1 for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CPU
+               and not getattr(ev, "is_user_annotation", False))
+
+
 def top_kernels(by_name: dict, n: int = 8) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:n]
     return {name[:90]: ms for name, ms in top}
@@ -1060,7 +1122,7 @@ def first_step(weights, batch, cfg=TRAIN_CFG, dtype=None):
     model.load_state_dict(weights)
     state = create_train_state(model, batch,
                                build_optimizer("adamw", 1e-3, 1e-5))
-    _state, losses = make_train_step(model)(state, batch)
+    _state, losses = make_train_step(model, cuda_graph=False)(state, batch)
     return ({k: float(v) for k, v in losses.items()},
             {k: p.grad.detach().cpu() for k, p in model.named_parameters()})
 
@@ -1099,12 +1161,16 @@ def train_batches(gs, device):
 
 
 def train_run(weights, batch, layout: str, failures: list, steps: int = 12,
-              warmup: int = 2, cfg=TRAIN_CFG, dtype=None):
+              warmup: int = 2, cfg=TRAIN_CFG, dtype=None,
+              cuda_graph: bool = False):
     """`steps` E/F/S train steps of a fresh model of config `cfg` and
     compute dtype `dtype` from `weights` on `batch`, the first `warmup`
     untimed: ms per step, edges per second over the timed window, launches
-    per step, peak memory, one profiled step.  Returns (row, first step's
-    losses and gradients, launches)."""
+    per step, peak memory, one profiled step.  The eager step, unless
+    `cuda_graph`: then the compiled step (its third step captures, the
+    rest replay), with the capture's ms and the profiled replay's launches
+    counted from the profiler.  Returns (row, first step's losses and
+    gradients, launches)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1118,7 +1184,7 @@ def train_run(weights, batch, layout: str, failures: list, steps: int = 12,
     model.load_state_dict(weights)
     state = create_train_state(model, batch,
                                build_optimizer("adamw", 1e-3, 1e-5))
-    step = make_train_step(model)
+    step = make_train_step(model, cuda_graph=cuda_graph)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -1160,6 +1226,15 @@ def train_run(weights, batch, layout: str, failures: list, steps: int = 12,
         "device_ops_per_step": n_device_ops,
         "top_kernels_ms": top_kernels(by_name),
         "losses": trajectory}
+    if cuda_graph:
+        loops = list(step.compiled.loops.values())
+        row.update(captures=step.compiled.captures,
+                   capture_ms=[lp.capture_ms for lp in loops if lp.graph],
+                   launches_per_step_from_profile=kernel_launches_in(prof),
+                   host_ops_per_step=host_ops_in(prof))
+        if step.compiled.captures != 1:
+            failures.append(f"train {layout}: {step.compiled.captures} "
+                            f"captures over {steps} steps of one batch")
     if not all(np.isfinite(v) for ls in trajectory for v in ls.values()):
         failures.append(f"train {layout}: non-finite losses")
     need, banned = TRAIN_KERNELS[layout]
@@ -1167,9 +1242,99 @@ def train_run(weights, batch, layout: str, failures: list, steps: int = 12,
             any(launches[k] != 0 for k in banned):
         failures.append(f"train {layout}: launches {launches} (need {need}, "
                         f"none of {banned})")
-    del state, model, prof
+    del state, model, prof, step
     torch.cuda.empty_cache()
     return row, first, {k: v / steps for k, v in launches.items()}
+
+
+NOT_BIT_IDENTICAL = (
+    "index_add (ops/segment.py's segment sums and the transpose of "
+    "x[idx]) adds with CUDA atomics in an order that varies from run to "
+    "run, captured or eager; under torch.use_deterministic_algorithms it "
+    "sums in a fixed order and the runs agree bit for bit")
+
+
+def deterministic_pair(weights, batch, cfg, dtype, steps: int = 12) -> dict:
+    """`steps` train steps of one batch from `weights`, compiled (two eager
+    sightings, a capture, replays) and eager, both under torch's
+    deterministic algorithms: every loss component of every step and
+    every final parameter and buffer bit for bit."""
+    import torch
+
+    from alignn_tpu_torch.nn.models import (ALIGNNAtomWise,
+                                            ALIGNNAtomWiseConfig)
+    from alignn_tpu_torch.train.optim import build_optimizer
+    from alignn_tpu_torch.train.state import (create_train_state,
+                                              make_train_step)
+
+    runs = []
+    with deterministic():
+        for graph in (True, False):
+            model = ALIGNNAtomWise(ALIGNNAtomWiseConfig(**cfg), dtype=dtype)
+            model.load_state_dict(weights)
+            state = create_train_state(model, batch, build_optimizer(
+                "adamw", 1e-3, 1e-5))
+            step = make_train_step(model, cuda_graph=graph)
+            losses = []
+            for _ in range(steps):
+                state, out = step(state, batch)
+                losses.append(torch.stack(list(out.values())))
+            captures = step.compiled.captures if graph else 0
+            runs.append((torch.stack(losses), {
+                k: v.detach().clone() for k, v in model.state_dict().items()},
+                captures))
+            del state, model, step
+    (la, pa, captures), (lb, pb, _c) = runs
+    differ = [k for k in pa if not torch.equal(pa[k], pb[k])]
+    return {"steps": steps, "captures": captures,
+            "losses_bitwise": bool(torch.equal(la, lb)),
+            "params_bitwise": not differ, "params_differing": differ[:5],
+            "bitwise": bool(torch.equal(la, lb)) and not differ}
+
+
+def captured_bench_step(weights, batch, cfg, dtype, eager_row: dict,
+                        failures: list) -> dict:
+    """bench.py's default step (bf16, dense, b64) compiled: 12 steps (2
+    eager sightings, the capture, 9 replays) against `eager_row`, the
+    same 12 steps eager: ms a step, the profiled replay's device ms and
+    launches, the capture's ms and the steps it takes to pay back, peak
+    memory; the default mode's losses held to the 16-bit first-step
+    limit at every step, the replays' too; then the deterministic pair,
+    bit for bit."""
+    row, _first, _l = train_run(weights, batch, "dense", failures, cfg=cfg,
+                                dtype=dtype, cuda_graph=True)
+    replay_ms = float(np.median(row["ms_steps"][1:]))
+    saving = eager_row["ms_per_step"] - replay_ms
+    gaps = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+            for a, b in zip(row["losses"], eager_row["losses"])]
+    bitwise = all(a == b for a, b in zip(row["losses"],
+                                         eager_row["losses"]))
+    if not max(gaps) <= PREC_TOL["loss_rel"]:
+        failures.append(f"precision bf16_dense captured vs eager: step "
+                        f"losses {gaps} apart (relative)")
+    pair = deterministic_pair(weights, batch, cfg, dtype)
+    if not pair["bitwise"] or pair["captures"] != 1:
+        failures.append(f"precision bf16_dense: captured vs eager under "
+                        f"deterministic algorithms {pair}")
+    return {"ms_per_step_eager": eager_row["ms_per_step"],
+            "ms_steps_captured": row["ms_steps"],
+            "replayed_ms": replay_ms,
+            "device_ms": row["device_busy_ms"],
+            "device_busy_share": row["device_busy_ms"] / replay_ms,
+            "device_ms_eager": eager_row["device_busy_ms"],
+            "capture_ms": row["capture_ms"],
+            "break_even_steps": row["capture_ms"][0] / saving
+            if saving > 0 else None,
+            "peak_memory_bytes": row["peak_memory_bytes"],
+            "peak_memory_bytes_eager": eager_row["peak_memory_bytes"],
+            "launches_per_replayed_step":
+                row["launches_per_step_from_profile"],
+            "host_ops_per_replayed_step": row["host_ops_per_step"],
+            "default_mode": {"bitwise": bitwise, "first_loss_rel": gaps[0],
+                             "max_step_loss_rel": max(gaps),
+                             "not_bit_identical": None if bitwise
+                             else NOT_BIT_IDENTICAL},
+            "deterministic": pair}
 
 
 def train_phase(weights, graphs, failures: list):
@@ -1501,6 +1666,9 @@ def loader_phase(weights, failures: list):
            "bucket": list(vars(spec).values()), "graph_build_s": graph_s,
            "host_batch_build_ms": build_ms, "steps": steps,
            "floors": dict(loader._win_floor),
+           # the compiled step: windows at their floor, one signature
+           "signatures": len(step.compiled.loops),
+           "captures": step.compiled.captures,
            "launches": launches,
            "launches_per_step": {k: v / len(steps)
                                  for k, v in launches.items()}}
@@ -1512,7 +1680,10 @@ def loader_phase(weights, failures: list):
             any(launches[k] != 0 for k in banned):
         failures.append(f"loader: launches {launches} (need {need}, none of "
                         f"{banned})")
-    del state, model, first
+    if step.compiled.captures != 1:
+        failures.append(f"loader: {step.compiled.captures} captures over "
+                        f"{len(steps)} windowed steps of one bucket")
+    del state, model, first, step
     torch.cuda.empty_cache()
     return row
 
@@ -2481,28 +2652,55 @@ def moved(obj, device, dtype=None):
 
 
 class StepTap:
-    """Taps the train step that ``train.trainer`` makes, for one run of
-    ``cli.train`` inside the ``with``: at the trainer's first step the
-    weights and the batch (copied to the host) and the launches of that
-    step; after it its loss and gradients; at every step the batch, so
-    that :meth:`replay` can run the trainer's own step again after the
-    run.  The copies add to the first epoch's seconds."""
+    """Taps the train and eval steps that ``train.trainer`` makes, for one
+    run of ``cli.train`` inside the ``with``, and makes them compiled
+    (`cuda_graph`, the trainer's default) or eager: at the trainer's
+    first step the weights and the batch (copied to the host) and the
+    launches of that step (an eager sighting either way); after it its
+    loss and gradients; at every step the batch, so that :meth:`replay`
+    can run the trainer's own step again after the run.  The copies add
+    to the first epoch's seconds."""
+
+    def __init__(self, cuda_graph: bool = True):
+        self.cuda_graph = cuda_graph
+        self.eval_step = None
 
     def __enter__(self):
         from alignn_tpu_torch.train import trainer
 
         self._trainer, self._make = trainer, trainer.make_train_step
+        self._make_eval = trainer.make_eval_step
         self.first = None
         trainer.make_train_step = self._wrap
+        trainer.make_eval_step = self._wrap_eval
         return self
 
     def __exit__(self, *exc):
         self._trainer.make_train_step = self._make
+        self._trainer.make_eval_step = self._make_eval
+
+    def _wrap_eval(self, model, **kw):
+        self.eval_step = self._make_eval(model, cuda_graph=self.cuda_graph,
+                                         **kw)
+        return self.eval_step
+
+    def compiled(self) -> dict:
+        """Per step kind: signatures seen, graphs captured, each capture's
+        host ms."""
+        out = {}
+        for what, step in (("train", self.step), ("eval", self.eval_step)):
+            c = getattr(step, "compiled", None)
+            if c is not None:
+                out[what] = {"signatures": len(c.loops),
+                             "captures": c.captures,
+                             "capture_ms": [lp.capture_ms for lp in
+                                            c.loops.values() if lp.graph]}
+        return out
 
     def _wrap(self, model, **kw):
         import torch
 
-        step = self._make(model, **kw)
+        step = self._make(model, cuda_graph=self.cuda_graph, **kw)
         self.model, self.kw, self.step = model, kw, step
 
         def tapped(state, batch):
@@ -2519,7 +2717,7 @@ class StepTap:
                 "launches": {k: after[k] - before[k] for k in after},
                 "weights": weights, "batch": host_batch,
                 "loss": float(losses["loss"]),
-                "grads": {k: p.grad.detach().cpu()
+                "grads": {k: p.grad.detach().cpu().clone()
                           for k, p in model.named_parameters()}}
             return state, losses
 
@@ -2543,11 +2741,17 @@ class StepTap:
         by_name, n_ops = device_ms_by_name(prof)
         busy = sum(by_name.values())
         b = self.batch
+        host_ops = host_ops_in(prof)
         return {"bucket": [b.z.shape[0], b.r.shape[0], b.lg_mask.shape[0],
                            b.dense_D],
+                "compiled": self.cuda_graph,
                 "step_ms": wall_ms, "device_busy_ms": busy,
                 "device_busy_share": busy / wall_ms,
                 "device_ops_per_step": n_ops,
+                "host_ops_per_step": host_ops,
+                "host_us_per_op": wall_ms * 1e3 / max(host_ops, 1),
+                "launches_from_profile": kernel_launches_in(prof),
+                "kernel_ms": kernel_ms_by_id(by_name),
                 "top_kernels_ms": top_kernels(by_name)}
 
     def hold_against_cpu(self, out: str, label: str, failures: list,
@@ -2626,15 +2830,12 @@ class StepTap:
         return row
 
 
-def cli_train(label: str, root: str, config: str, out: str, failures: list,
-              cache_from: str = None, extra=(), cpu_dtype="float32",
-              float64_if_missed: bool = False) -> dict:
+def cli_run(root: str, config: str, out: str, cache_from: str = None,
+            extra=(), cuda_graph: bool = True) -> tuple:
     """``cli.train.main`` on the card into `out` (a copy of `cache_from`'s
-    graph cache seeded there first, if given), launches counted from 0
-    over the run and over its first train step; then the trainer's step
-    replayed (timed, profiled) and its first step held against the CPU
-    port in `cpu_dtype`, or with `float64_if_missed` in float32 and, where
-    that misses, in float64, which then decides (both recorded)."""
+    graph cache seeded there first, if given) with the trainer's steps
+    compiled or eager, launches counted from 0 over the run; returns
+    (summary, tap, seconds, launches, peak bytes)."""
     import shutil
 
     import torch
@@ -2649,13 +2850,36 @@ def cli_train(label: str, root: str, config: str, out: str, failures: list,
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t = time.perf_counter()
-    with StepTap() as tap:
+    with StepTap(cuda_graph) as tap:
         summary = cli_train_mod.main(["--root_dir", root, "--config_name",
                                       config, "--output_dir", out, *extra])
     torch.cuda.synchronize()
-    seconds = time.perf_counter() - t
-    launches = read_launches()
-    peak = torch.cuda.max_memory_allocated()
+    return (summary, tap, time.perf_counter() - t, read_launches(),
+            torch.cuda.max_memory_allocated())
+
+
+def final_weights(summary) -> dict:
+    return {k: v.detach().clone()
+            for k, v in summary["state"].model.state_dict().items()}
+
+
+def cli_train(label: str, root: str, config: str, out: str, failures: list,
+              cache_from: str = None, extra=(), cpu_dtype="float32",
+              float64_if_missed: bool = False, keep: dict = None,
+              holds: list = None) -> dict:
+    """``cli.train.main`` on the card into `out` (:func:`cli_run`, the
+    trainer's steps compiled), launches counted from 0 over the run and
+    over its first train step; then the trainer's step replayed (timed,
+    profiled, its launches counted from the profile) and its first step
+    held against the CPU port in `cpu_dtype`, or with `float64_if_missed`
+    in float32 and, where that misses, in float64, which then decides
+    (both recorded).  `keep`, if given, receives the run's step losses
+    and final weights.  With `holds`, the CPU check is appended there as
+    a function, to be run later (:func:`run_holds`), not here."""
+    import torch
+
+    summary, tap, seconds, launches, peak = cli_run(root, config, out,
+                                                    cache_from, extra)
     steps = summary["steps_per_epoch"]
     losses = [v for name in ("history_train.json", "history_val.json")
               for row in json.load(open(os.path.join(out, name)))
@@ -2686,22 +2910,198 @@ def cli_train(label: str, root: str, config: str, out: str, failures: list,
            "peak_memory_bytes": peak,
            "launches_over_run": launches,
            "launches_per_train_step": per_step,
+           "compiled": tap.compiled(),
            "test_mae": summary.get("test_mae"),
+           "learning_curve_png": os.path.exists(
+               os.path.join(out, "learning_curve.png")),
            "history_train": json.load(open(os.path.join(
                out, "history_train.json")))}
     if not abs(tap.first["loss"] - summary["step_losses"][0][0]) <= 0.0:
         failures.append(f"train_cli {label}: the tapped first loss "
                         f"{tap.first['loss']} is not the trainer's")
+    from alignn_tpu_torch.ff.step_loop import WARMUP_STEPS
+
+    if steps * summary["epochs_run"] > WARMUP_STEPS and \
+            row["compiled"]["train"]["captures"] < 1:
+        failures.append(f"train_cli {label}: the train step was never "
+                        f"captured ({row['compiled']})")
     row["replayed_step"] = tap.replay(summary["state"])
-    del summary, tap.batch, tap.model, tap.step
+    got = row["replayed_step"]["launches_from_profile"]
+    if any(got[k] <= 0 for k in need) or any(got[k] != 0 for k in banned):
+        failures.append(f"train_cli {label}: the replayed step's launches "
+                        f"{got} (need {need}, none of {banned})")
+    if keep is not None:
+        keep.update(losses=summary["step_losses"],
+                    weights=final_weights(summary))
+    del summary, tap.batch, tap.model, tap.step, tap.eval_step
     torch.cuda.empty_cache()
-    missed: list = []
-    row["first_step_vs_cpu"] = tap.hold_against_cpu(
-        out, label, missed if float64_if_missed else failures, cpu_dtype)
-    if missed:
-        row["float32_missed"] = missed
-        row["first_step_vs_cpu_float64"] = tap.hold_against_cpu(
-            out, label, failures, "float64")
+
+    def hold():
+        missed: list = []
+        row["first_step_vs_cpu"] = tap.hold_against_cpu(
+            out, label, missed if float64_if_missed else failures, cpu_dtype)
+        if missed:
+            row["float32_missed"] = missed
+            row["first_step_vs_cpu_float64"] = tap.hold_against_cpu(
+                out, label, failures, "float64")
+
+    if holds is None:
+        hold()
+    else:
+        holds.append(hold)
+    return row
+
+
+def run_holds(holds: list, workers: int = 2) -> dict:
+    """The deferred CPU checks of :func:`cli_train`, `workers` at a time
+    in threads, the last deferred first (the f16 and f64 steps, which
+    take a minute or more each on the CPU, start together); after every
+    card run of the phase, so that no card timing shares the host with
+    them."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        for job in [pool.submit(h) for h in reversed(holds)]:
+            job.result()
+    return {"checks": len(holds), "workers": workers,
+            "seconds": time.perf_counter() - t}
+
+
+def runs_apart(a_losses, a_weights, b_losses, b_weights) -> dict:
+    """Two trainer runs' step losses (per epoch) and final weights: bit
+    for bit, and how far apart."""
+    import torch
+
+    la = np.asarray([v for ep in a_losses for v in ep])
+    lb = np.asarray([v for ep in b_losses for v in ep])
+    differ = [k for k in a_weights
+              if not torch.equal(a_weights[k], b_weights[k])]
+    rel = np.abs(la - lb) / np.maximum(np.abs(lb), 1e-30)
+    return {"steps": int(la.size),
+            "bitwise": la.tobytes() == lb.tobytes() and not differ,
+            "weights_differing": len(differ),
+            "first_loss_rel": float(rel[0]),
+            "max_step_loss_rel": float(rel.max()),
+            "final_weight_max_abs_diff": max(
+                float((a_weights[k].double() - b_weights[k].double()).abs()
+                      .max()) for k in a_weights)}
+
+
+def read_json(path: str):
+    with open(path) as f:
+        return json.load(f)
+
+
+def captured_vs_eager(label: str, root: str, config: str, out: str,
+                      failures: list, captured: dict, kept: dict,
+                      det_config: str, cache_from: str = None, extra=(),
+                      loss_tol: float = TRAIN_TOL["loss_rel"]) -> dict:
+    """The captured run `captured` (cli_train's row; `kept` its step
+    losses and final weights) against the same run with the trainer's
+    steps eager: trainer ms a step and s an epoch, the replayed step
+    (wall and device ms) against the eager step replayed, the capture's
+    ms and the steps it takes to pay back, peak memory; the default mode
+    (index_add by atomics) held to the first-step loss limit `loss_tol` at
+    every step, the replays' too;
+    then the run of `det_config` (one epoch, no result files) captured
+    and eager under torch's deterministic algorithms, whose step losses,
+    validation history and final weights must agree bit for bit."""
+    import torch
+
+    summary, tap, seconds, _launches, peak = cli_run(
+        root, config, out + "_eager", cache_from, extra, cuda_graph=False)
+    steps = summary["steps_per_epoch"]
+    eager = {"seconds": seconds, "seconds_per_epoch": summary["epoch_s"],
+             "ms_per_train_step": [1e3 * e / steps
+                                   for e in summary["epoch_s"]],
+             "peak_memory_bytes": peak,
+             "replayed_step": tap.replay(summary["state"])}
+    default = runs_apart(kept["losses"], kept["weights"],
+                         summary["step_losses"], final_weights(summary))
+    del summary, tap
+    torch.cuda.empty_cache()
+    if not default["bitwise"]:
+        default["not_bit_identical"] = NOT_BIT_IDENTICAL
+    if not default["max_step_loss_rel"] <= loss_tol:
+        failures.append(f"train_cli {label} captured vs eager: step losses "
+                        f"up to {default['max_step_loss_rel']} apart "
+                        f"(relative)")
+    det = {}
+    with deterministic():
+        for mode in (True, False):
+            d_out = out + ("_det_captured" if mode else "_det_eager")
+            summary, tap, d_s, _l, _p = cli_run(
+                root, det_config, d_out, cache_from, extra,
+                cuda_graph=mode)
+            det[mode] = (summary["step_losses"], final_weights(summary),
+                         read_json(os.path.join(d_out, "history_val.json")),
+                         tap.compiled(), d_s)
+            del summary, tap
+            torch.cuda.empty_cache()
+    pair = runs_apart(det[True][0], det[True][1], det[False][0],
+                      det[False][1])
+    pair["history_val_bitwise"] = det[True][2] == det[False][2]
+    pair["compiled"] = det[True][3]
+    pair["seconds"] = {"captured": det[True][4], "eager": det[False][4]}
+    if not (pair["bitwise"] and pair["history_val_bitwise"]):
+        failures.append(f"train_cli {label}: captured vs eager under "
+                        f"deterministic algorithms {pair}")
+    rep, rep_eager = captured["replayed_step"], eager["replayed_step"]
+    capture_ms = captured["compiled"]["train"]["capture_ms"]
+    saving = rep_eager["step_ms"] - rep["step_ms"]
+    return {"eager": eager,
+            "ms_per_train_step": {"captured": captured["ms_per_train_step"],
+                                  "eager": eager["ms_per_train_step"]},
+            "replayed_ms": {"captured": rep["step_ms"],
+                            "eager": rep_eager["step_ms"]},
+            "device_ms": {"captured": rep["device_busy_ms"],
+                          "eager": rep_eager["device_busy_ms"]},
+            "capture_ms": capture_ms,
+            "break_even_steps": capture_ms[0] / saving
+            if capture_ms and saving > 0 else None,
+            "peak_memory_bytes": {"captured": captured["peak_memory_bytes"],
+                                  "eager": peak},
+            "default_mode": default, "deterministic": pair}
+
+
+def cli_profile(root: str, config: str, out: str, cache_from: str,
+                failures: list) -> dict:
+    """``cli.train --profile`` on (a)'s folder and config (its graph
+    cache copied in): profile_step's result, and from its Chrome trace
+    (6 replayed steps) the host operator events, device operations,
+    kernel launches and device busy share a step."""
+    import shutil
+
+    from alignn_tpu_torch.cli import train as cli_train_mod
+
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(os.path.join(cache_from, "graph_cache"),
+                    os.path.join(out, "graph_cache"))
+    trace_dir = os.path.join(out, "trace")
+    with contextlib.redirect_stdout(io.StringIO()):
+        result = cli_train_mod.main(["--root_dir", root, "--config_name",
+                                     config, "--output_dir", out,
+                                     "--profile", trace_dir])
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    active = 6
+    device = [e for e in events if e.get("cat") in
+              ("kernel", "gpu_memcpy", "gpu_memset")]
+    ids = [kernel_id(e.get("name", "")) for e in device
+           if e.get("cat") == "kernel"]
+    launches = {key: ids.count(key) / active for key, _p in KERNEL_SYMBOLS}
+    row = {**result,
+           "host_ops_per_step": sum(1 for e in events
+                                    if e.get("cat") == "cpu_op") / active,
+           "device_ops_per_step": len(device) / active,
+           "device_busy_share": sum(e.get("dur", 0) for e in device) / 1e6
+           / (result["step_time_s"] * active),
+           "launches_per_step": launches}
+    if set(result) != {"step_time_s", "trace_dir", "edges_per_s"} or \
+            not launches["K1"] > 0 or os.path.exists(
+                os.path.join(out, "history_train.json")):
+        failures.append(f"train_cli --profile: {row}")
     return row
 
 
@@ -2779,8 +3179,12 @@ def train_cli_phase(failures: list) -> tuple:
     epoch with ALIGNN_TPU_FUSED_LSTAGE=1 (K4, never K6/K7); (c) the FF
     config of docs/mlearn_r4/Si for one epoch on 40 si64 cells labelled by
     that potential.  Every run's first train step is the one held against
-    the CPU port and counted per step.  Returns (rows, launches per
-    property train step by layout)."""
+    the CPU port and counted per step, and every run trains through the
+    compiled steps; (a), (b) and (c) run again with the steps eager, and
+    captured and eager under deterministic algorithms (one epoch), and
+    ``cli.train --profile`` profiles (a)'s step.  The first steps' CPU
+    checks run last, two at a time.  Returns (rows, launches per property
+    train step by layout)."""
     import shutil
 
     import torch
@@ -2796,11 +3200,26 @@ def train_cli_phase(failures: list) -> tuple:
                        {**PROPERTY_RUN, "epochs": 1,
                         "dense_neighborhoods": True})
     out_a = os.path.join(d, "out_sparse")
-    rows = {"a_sparse": cli_train("sparse", root, cfg_a, out_a, failures)}
+    kept: dict = {"a": {}, "b": {}, "c": {}}
+    holds: list = []    # the first steps' CPU checks, run at the end
+    rows = {"a_sparse": cli_train("sparse", root, cfg_a, out_a, failures,
+                                  keep=kept["a"], holds=holds)}
     rows["a_predict"] = predict_check(out_a, root, failures)
+    # the deterministic pairs: one epoch, no result passes or files
+    quiet = {"epochs": 1, "n_test": 4, "store_outputs": False,
+             "write_predictions": False, "write_checkpoint": False}
+    det_a = write_json(os.path.join(d, "property_det.json"),
+                       {**PROPERTY_RUN, **quiet})
+    rows["a_sparse"]["vs_eager"] = captured_vs_eager(
+        "sparse", root, cfg_a, out_a, failures, rows["a_sparse"], kept["a"],
+        det_a, cache_from=out_a)
+    rows["a_profile"] = cli_profile(root, cfg_a, os.path.join(d, "out_prof"),
+                                    out_a, failures)
+    torch.cuda.empty_cache()
     rows["d_cached"] = cli_train("sparse", root, cfg_a,
                                  os.path.join(d, "out_cached"), failures,
-                                 cache_from=out_a, extra=("--epochs", "1"))
+                                 cache_from=out_a, extra=("--epochs", "1"),
+                                 holds=holds)
     rows["d_cached"]["uncached_first_epoch_s"] = \
         rows["a_sparse"]["seconds_per_epoch"][0]
     rows["d_cached"]["cache_readback"] = cache_readback(
@@ -2810,20 +3229,29 @@ def train_cli_phase(failures: list) -> tuple:
         failures.append(f"train_cli: cache hits "
                         f"{rows['a_sparse']['graph_cache_hits']} then "
                         f"{rows['d_cached']['graph_cache_hits']}")
-    rows["b_dense"] = cli_train("dense", root, cfg_b,
-                                os.path.join(d, "out_dense"), failures,
-                                cache_from=out_a)
+    out_b = os.path.join(d, "out_dense")
+    rows["b_dense"] = cli_train("dense", root, cfg_b, out_b, failures,
+                                cache_from=out_a, keep=kept["b"],
+                                holds=holds)
+    rows["b_dense"]["vs_eager"] = captured_vs_eager(
+        "dense", root, cfg_b, out_b, failures, rows["b_dense"], kept["b"],
+        write_json(os.path.join(d, "property_dense_det.json"),
+                   {**PROPERTY_RUN, **quiet, "dense_neighborhoods": True}),
+        cache_from=out_a)
+    torch.cuda.empty_cache()
     with switch_env(FUSED_ENV):
         rows["b_dense_fused_switch"] = cli_train(
             "dense_fused_switch", root, cfg_b,
-            os.path.join(d, "out_dense_fused"), failures, cache_from=out_a)
+            os.path.join(d, "out_dense_fused"), failures, cache_from=out_a,
+            holds=holds)
     # (a) again in bf16 and in f16 for one epoch each, from (a)'s cache
     for run, dt in (("a_bf16", "bfloat16"), ("a_f16", "float16")):
         rows[run] = cli_train(
             "sparse", root, write_json(os.path.join(d, f"property_{dt}.json"),
                                        {**PROPERTY_RUN, "epochs": 1,
                                         "dtype": dt}),
-            os.path.join(d, f"out_{dt}"), failures, cache_from=out_a)
+            os.path.join(d, f"out_{dt}"), failures, cache_from=out_a,
+            holds=holds)
         rows[run]["f32_first_epoch"] = {
             k: rows["a_sparse"][k][0] for k in ("seconds_per_epoch",
                                                 "ms_per_train_step",
@@ -2834,10 +3262,18 @@ def train_cli_phase(failures: list) -> tuple:
     with open(os.path.join(MODEL_DIR, "config.json")) as f:
         ff_cfg = {**json.load(f), "epochs": 1, "n_train": 32, "n_val": 4,
                   "n_test": 4}
-    rows["c_ff_si"] = cli_train(
-        "ff_si", ff_root, write_json(os.path.join(d, "ff_si.json"), ff_cfg),
-        os.path.join(d, "out_ff"), failures, cpu_dtype="float64")
+    cfg_c, out_c = write_json(os.path.join(d, "ff_si.json"), ff_cfg), \
+        os.path.join(d, "out_ff")
+    rows["c_ff_si"] = cli_train("ff_si", ff_root, cfg_c, out_c, failures,
+                                cpu_dtype="float64", keep=kept["c"],
+                                holds=holds)
+    rows["c_ff_si"]["vs_eager"] = captured_vs_eager(
+        "ff_si", ff_root, cfg_c, out_c, failures, rows["c_ff_si"],
+        kept["c"], write_json(os.path.join(d, "ff_si_det.json"),
+                              {**ff_cfg, **quiet}))
+    del kept
     torch.cuda.empty_cache()
+    rows["cpu_holds"] = run_holds(holds)
     per_step = {"sparse": rows["a_sparse"]["launches_per_train_step"],
                 "dense": rows["b_dense"]["launches_per_train_step"]}
     return rows, per_step
@@ -3034,18 +3470,28 @@ def xff_step(failures: list) -> tuple:
     return row, launches
 
 
+DETERMINISM_WARNINGS: set = set()   # ops torch found no fixed order for
+
+
 @contextlib.contextmanager
 def deterministic():
     """torch's deterministic algorithms inside (warn only), restored after:
     ``index_add`` then sums in a fixed order instead of by atomics, whose
-    order, and so whose last bits, vary from call to call."""
+    order, and so whose last bits, vary from call to call.  The warnings
+    of ops that have no deterministic version are kept, once each, in
+    :data:`DETERMINISM_WARNINGS`."""
+    import warnings
+
     import torch
 
     previous = (torch.are_deterministic_algorithms_enabled(),
                 torch.is_deterministic_algorithms_warn_only_enabled())
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        yield
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield
+        DETERMINISM_WARNINGS.update(str(w.message)[:200] for w in caught)
     finally:
         torch.use_deterministic_algorithms(previous[0],
                                            warn_only=previous[1])
@@ -3396,6 +3842,9 @@ def precision_phase(weights, graphs, f32_rows: dict, f32_first: dict,
                "f32_peak_memory_bytes": f32_rows[layout]["peak_memory_bytes"],
                "trajectory_vs_f32": trajectory_gap(
                    row["losses"], f32_rows[layout]["losses"]), **row}
+        if run == "bf16_dense":   # bench.py's default step, compiled
+            row["captured"] = captured_bench_step(w, batch, cfg, tdtype,
+                                                  row, failures)
         rows[run], launches[run] = row, per_step
         del first
         torch.cuda.empty_cache()
@@ -3931,6 +4380,13 @@ def main() -> int:
             "launches_per_precision_step": {
                 run: counts[key]
                 for run, counts in precision_launches.items()},
+            # counted from the profiler: a replay moves no counter
+            "launches_per_captured_step": {
+                **{run: cli_rows[run]["replayed_step"][
+                    "launches_from_profile"][key]
+                   for run in ("a_sparse", "b_dense", "c_ff_si")},
+                "bench_bf16_dense": prec_rows["bf16_dense"]["captured"][
+                    "launches_per_replayed_step"][key]},
             "max_abs_err": f32["max_abs_err"], "rel_err": f32["rel_err"],
             "tol_rel": f32["tol_rel"],
             "ms": f32["ms"], "kernel_ms": f32["ms"],
@@ -3962,6 +4418,9 @@ def main() -> int:
                 "library_host_us": f32["library_host_us"],
                 "dst_float32": r["dst_float32"], "sites": r["checks"]}
                if key == "K8" else {})})
+    if DETERMINISM_WARNINGS:
+        emit({"phase": "determinism_warnings",
+              "warnings": sorted(DETERMINISM_WARNINGS)})
     emit({"kernels": line})
     if failures:
         for msg in failures:

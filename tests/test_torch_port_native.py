@@ -17,11 +17,17 @@ C++ lists:
   within 1e-12 A (a radius graph takes the search's own displacements,
   which the two searches round each their own way);
 - two processes that build the library at once both load it.
+
+alignn_tpu compiles its own library in place at first use (``g++ -o``
+next to its source), so a test process may find it half written by
+another; the tests that run it first wait for it to be whole
+(:func:`jax_native`).
 """
 
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -74,6 +80,45 @@ FIELDS = ("z", "frac_coords", "lattice", "src", "dst", "r", "images",
           "lg_src", "lg_dst")
 
 
+def _wait_until_still(path: str, deadline: float, quiet_s: float = 1.0):
+    """Return once `path` is absent or its size has not changed for
+    `quiet_s` seconds (or at `deadline`)."""
+    last, since = None, time.monotonic()
+    while time.monotonic() < deadline:
+        size = os.path.getsize(path) if os.path.exists(path) else None
+        if size is None:
+            return
+        if size != last:
+            last, since = size, time.monotonic()
+        elif time.monotonic() - since >= quiet_s:
+            return
+        time.sleep(0.1)
+
+
+@pytest.fixture(scope="module")
+def jax_native():
+    """alignn_tpu's C++ neighbour library, loaded once it is whole.
+
+    Wait until the library file's size is still, then load it; a load
+    that still meets a partial file (``OSError``: "file too short") waits
+    and loads again, for at most three minutes."""
+    from alignn_tpu import native as jnative
+
+    lib = os.path.join(os.path.dirname(jnative.__file__), "libneighbors.so")
+    deadline = time.monotonic() + 180.0
+    while True:
+        _wait_until_still(lib, deadline)
+        try:
+            loaded = jnative.neighbors_lib()
+            break
+        except OSError:
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.5)
+    assert loaded is not None          # g++ is on this host
+    return loaded
+
+
 def _both_atoms(name):
     from alignn_tpu.chem.atoms import Atoms as JAtoms
     from alignn_tpu_torch.chem.atoms import Atoms
@@ -105,7 +150,7 @@ def test_native_library_is_built_outside_the_package():
 
 @pytest.mark.parametrize("name", sorted(STRUCTURES))
 @pytest.mark.parametrize("cutoff", [4.5, 8.0])
-def test_pairs_equal_jax_native(name, cutoff):
+def test_pairs_equal_jax_native(name, cutoff, jax_native):
     from alignn_tpu.native import periodic_pairs_native as jpairs
     from alignn_tpu_torch.native import periodic_pairs_native
 
@@ -123,7 +168,7 @@ def test_pairs_equal_jax_native(name, cutoff):
 @pytest.mark.parametrize("name", sorted(STRUCTURES))
 @pytest.mark.parametrize("kw", GRAPHS, ids=lambda kw: "-".join(
     str(v) for v in kw.values()))
-def test_build_graph_equals_jax_native(name, kw):
+def test_build_graph_equals_jax_native(name, kw, jax_native):
     from alignn_tpu.graph.build import build_graph as jbuild
     from alignn_tpu_torch.graph.build import build_graph
 
