@@ -12,8 +12,18 @@ starts from a weights file.  ``--profile DIR`` trains nothing: it builds
 the model, its train state and the compiled train step on the first
 training batch, profiles that step (:func:`~alignn_tpu_torch.profiler.
 profile_step`: 2 wait, 2 warm-up and 6 traced steps, the trace in
-``DIR/trace.json``) and prints and returns the result.  Data parallelism
-(``--devices`` > 1) is not ported yet and raises.
+``DIR/trace.json``) and prints and returns the result.
+
+``--devices N`` trains data-parallel over N ranks, one a device
+(:func:`~alignn_tpu_torch.parallel.dp.train_model_dp`): under ``torchrun``
+this process is one of them and joins the group from its environment;
+otherwise it spawns N ranks that meet at a free localhost port, NCCL on
+the card and gloo with ``--device cpu``.  Each rank's train loader takes
+``num_shards=N`` and its own shard; rank 0 writes the artifacts and its
+summary is returned (the other ranks write nothing to the output
+directory).  On the card N may not exceed the visible GPUs: NCCL
+refuses two ranks on one device.  ``--profile`` with ``--devices N``
+profiles shard 0's single-device step in this process, as JAX does.
 """
 
 from __future__ import annotations
@@ -21,13 +31,21 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import shutil
+import socket
 import sys
+import tempfile
 from typing import Any, Dict, Optional
+
+import torch
+import torch.distributed as dist
 
 from alignn_tpu_torch import resolve_device
 from alignn_tpu_torch.config import TrainingConfig
 from alignn_tpu_torch.data.dataset import load_folder_records
 from alignn_tpu_torch.data.loader import get_train_val_loaders
+from alignn_tpu_torch.parallel.mesh import (GRAPH_AXIS_REFUSAL,
+                                            initialize_distributed)
 from alignn_tpu_torch.train.trainer import train_model
 
 
@@ -52,17 +70,36 @@ def train_for_folder(
     device=None,
 ) -> Dict[str, Any]:
     """Train from a folder of structures and id_prop targets; returns the
-    trainer's summary, with the loaders' ``graph_stats``."""
-    if devices > 1:
-        raise NotImplementedError(
-            "--devices > 1 (data parallelism) is not ported yet "
-            '(ROADMAP.md §1 "Multi-GPU")')
+    trainer's summary (rank 0's with ``devices`` > 1), with the loaders'
+    ``graph_stats``."""
+    kwargs = dict(locals())
     if not os.path.exists(config_name):
         raise FileNotFoundError(
             f"config file not found: {config_name} "
             "(pass --config_name pointing at a TrainingConfig json)")
     device = resolve_device(device)
     config = TrainingConfig.from_json(config_name)
+    rank = 0
+    if devices > 1 and not profile:
+        if int((config.mesh_shape or {}).get("graph", 1)) > 1:
+            raise NotImplementedError(f"mesh_shape {config.mesh_shape}: "
+                                      f"{GRAPH_AXIS_REFUSAL}")
+        if not dist.is_initialized():
+            if device.type == "cuda" and \
+                    devices > torch.cuda.device_count():
+                raise ValueError(
+                    f"--devices {devices} with {torch.cuda.device_count()} "
+                    f"visible GPU(s): NCCL refuses two ranks on one device "
+                    f'(ROADMAP.md §1 "Not ported, by decision")')
+            if "WORLD_SIZE" not in os.environ:
+                return _spawn_ranks(devices, kwargs)
+            initialize_distributed(device=device)     # a torchrun rank
+        if dist.get_world_size() != devices:
+            raise ValueError(f"--devices {devices} in a group of "
+                             f"{dist.get_world_size()} ranks")
+        rank = dist.get_rank()
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
     if classification_threshold is not None:
         config.classification_threshold = float(classification_threshold)
     if output_dir is not None:
@@ -98,6 +135,14 @@ def train_for_folder(
         config.model = dataclasses.replace(
             config.model, output_features=widths.pop())
 
+    # ranks other than 0 build their loaders after rank 0 has, from its
+    # graph cache where there is one, and write their copies of the split
+    # files (ids, mad, baseline) to a directory of their own
+    sharded = devices > 1 and not profile
+    split_dir = config.output_dir
+    if sharded and rank > 0:
+        dist.barrier()
+        split_dir = tempfile.mkdtemp(prefix=f"rank{rank}_splits_")
     tr, va, te, _mad = get_train_val_loaders(
         records,
         id_tag=id_key,
@@ -120,7 +165,7 @@ def train_for_folder(
         classification_threshold=config.classification_threshold,
         target_multiplication_factor=config.target_multiplication_factor,
         standard_scalar_and_pca=config.standard_scalar_and_pca,
-        output_dir=config.output_dir,
+        output_dir=split_dir,
         num_workers=config.num_workers,
         target_width=getattr(config.model, "output_features", 1),
         atomwise_width=getattr(m, "atomwise_output_features", 0),
@@ -133,7 +178,13 @@ def train_for_folder(
         per_species_energy_baseline=config.per_species_energy_baseline,
         lg_cutoff=config.lg_cutoff,
         device=device,
+        num_shards=devices,
+        shard_index=rank,
     )
+    if sharded and rank == 0:
+        dist.barrier()
+    elif sharded:
+        shutil.rmtree(split_dir, ignore_errors=True)
     if profile:
         return _profile(config, tr, profile)
     restart_state_path = None
@@ -144,11 +195,59 @@ def train_for_folder(
             print(f"[resume] no checkpoint at {restart_state_path}; "
                   f"starting fresh")
             restart_state_path = None
-    summary = train_model(config, tr, va, te,
-                          restart_params_path=restart_model_path,
-                          restart_state_path=restart_state_path)
+    if sharded:
+        from alignn_tpu_torch.parallel.dp import train_model_dp
+
+        summary = train_model_dp(config, tr, va, te, n_devices=devices,
+                                 restart_params_path=restart_model_path,
+                                 restart_state_path=restart_state_path)
+    else:
+        summary = train_model(config, tr, va, te,
+                              restart_params_path=restart_model_path,
+                              restart_state_path=restart_state_path)
     summary["graph_stats"] = tr.graph_stats
     return summary
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _spawn_ranks(devices: int, kwargs: Dict[str, Any]) -> Dict[str, Any]:
+    """Run :func:`train_for_folder` on `devices` spawned ranks; rank 0's
+    summary (without its ``state``)."""
+    import torch.multiprocessing as mp
+
+    queue = mp.get_context("spawn").SimpleQueue()
+    ranks = mp.start_processes(_rank_main, args=(devices, _free_port(),
+                                                 kwargs, queue),
+                               nprocs=devices, start_method="spawn",
+                               join=False)
+    summary = None
+    done = False
+    while not done:     # read while joining: a large put would block
+        done = ranks.join(timeout=1.0)    # raises if a rank failed
+        if summary is None and not queue.empty():
+            summary = queue.get()
+    return summary
+
+
+def _rank_main(rank: int, world: int, port: int, kwargs: Dict[str, Any],
+               queue) -> None:
+    """One spawned rank: join the group, train, hand rank 0's summary
+    back."""
+    device = resolve_device(kwargs["device"])
+    if device.type == "cpu":   # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    initialize_distributed(f"localhost:{port}", world, rank, device=device)
+    try:
+        summary = train_for_folder(**kwargs)
+        if rank == 0:
+            queue.put({k: v for k, v in summary.items() if k != "state"})
+    finally:
+        dist.destroy_process_group()
 
 
 def _profile(config: TrainingConfig, train_loader, logdir: str
@@ -208,7 +307,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help='whole-state resume: "auto" = '
                         "<output_dir>/restart.mpk, or a path")
     p.add_argument("--devices", default=1, type=int,
-                   help="data-parallel device count (only 1 is ported)")
+                   help="data-parallel ranks, one a device (NCCL on the "
+                        "card, gloo with --device cpu)")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="profile one compiled train step on the first "
                         "training batch (torch.profiler trace in "

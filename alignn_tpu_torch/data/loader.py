@@ -17,8 +17,19 @@ Counterpart of ``BucketedLoader`` and the bucket sizing of
   so that it pauses while a train step's CUDA graph is captured.
 
 Batches land on the loader's `device`, ``cuda`` unless another is asked
-for (:func:`alignn_tpu_torch.resolve_device`).  Stacking ``num_shards``
-batches for data parallelism waits for the DDP port.
+for (:func:`alignn_tpu_torch.resolve_device`).
+
+Data parallelism: JAX's loader with ``num_shards=D`` stacks D consecutive
+batches of one step into a ``[D, ...]`` batch for its one SPMD program.
+The port runs one process a device, so the loader of rank ``shard_index``
+yields that rank's shard alone: of each step's ``batch_size * D`` items
+(after the epoch permutation and the host stride, as in JAX), the slice
+``[shard_index * batch_size, (shard_index + 1) * batch_size)``.  Under
+shards ``drop_last`` is on, as in JAX.  The static fields must be equal on
+every rank: the bucket comes from the whole dataset, and each step's
+windows are floored over all D shards, the others' measured from their
+index arrays alone (:func:`~alignn_tpu_torch.graph.batch.batch_windows`),
+so that every rank's floor moves in step without a collective.
 
 :func:`get_train_val_loaders` turns records into the three loaders of a
 training run: filter, split (``ids_train_val_test.json``), the optional
@@ -37,6 +48,7 @@ import pickle
 import queue
 import threading
 import time
+from types import SimpleNamespace
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -52,7 +64,8 @@ from alignn_tpu_torch.data.dataset import (GraphDataset, LazyCacheView,
                                            records_to_graphs_iter)
 from alignn_tpu_torch.data.splits import get_id_train_val_test
 from alignn_tpu_torch.graph.batch import (WIN_FIELDS, BucketSpec, GraphBatch,
-                                          _round_up, batch_graphs)
+                                          _round_up, batch_graphs,
+                                          batch_windows)
 from alignn_tpu_torch.graph.build import GraphData
 from alignn_tpu_torch.graph.dense import (AsymmetricEdgesError,
                                           dense_batch_graphs,
@@ -89,7 +102,8 @@ def worst_case_spec(graphs: Sequence[GraphData], batch_size: int,
 
 
 class BucketedLoader:
-    """Iterates padded GraphBatches over a :class:`GraphDataset`."""
+    """Iterates padded GraphBatches over a :class:`GraphDataset`; with
+    ``num_shards`` > 1, shard ``shard_index``'s batch of each step."""
 
     def __init__(self, dataset: GraphDataset, batch_size: int,
                  shuffle: bool = False, drop_last: bool = False,
@@ -101,16 +115,17 @@ class BucketedLoader:
                  seed: int = 123, bucket_slack: float = 1.0,
                  host_id: int = 0, num_hosts: int = 1,
                  prefetch: int = 2, dense: bool = False,
-                 device: Optional[torch.device | str] = None):
-        if num_shards > 1:
-            raise NotImplementedError(
-                "num_shards > 1 stacks per-device batches for data "
-                'parallelism, which waits for the DDP port (ROADMAP.md §1 '
-                '"Multi-GPU")')
+                 device: Optional[torch.device | str] = None,
+                 shard_index: int = 0):
+        if not 0 <= shard_index < max(num_shards, 1):
+            raise ValueError(f"shard_index {shard_index} is not one of "
+                             f"the {num_shards} shards")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
-        self.drop_last = drop_last
+        self.drop_last = drop_last or num_shards > 1
+        self.num_shards = max(num_shards, 1)
+        self.shard_index = shard_index
         self.atom_features = atom_features
         self.target_width = target_width
         self.atomwise_width = atomwise_width
@@ -154,8 +169,8 @@ class BucketedLoader:
         self.graph_stats: Optional[Dict[str, Any]] = None
 
     def __len__(self) -> int:
-        n, b = len(self._order()), self.batch_size
-        return n // b if self.drop_last else (n + b - 1) // b
+        n, full = len(self._order()), self.batch_size * self.num_shards
+        return n // full if self.drop_last else (n + full - 1) // full
 
     def set_epoch(self, epoch: int):
         self.epoch = epoch
@@ -210,10 +225,22 @@ class BucketedLoader:
             out[name] = w
         return out
 
+    def _shard(self, order, s: int, d: int):
+        """The items of shard `d` of step `s`."""
+        b = self.batch_size
+        start = (s * self.num_shards + d) * b
+        return order[start:start + b]
+
     def _batch_for_step(self, order, s: int) -> GraphBatch:
-        b = self._make_batch(order[s * self.batch_size:
-                                   (s + 1) * self.batch_size])
-        return dataclasses.replace(b, **self._floor_windows([b]))
+        b = self._make_batch(self._shard(order, s, self.shard_index))
+        shards = [b]
+        if self.num_shards > 1 and not b.dense_D:
+            # the other shards' windows, from their index arrays
+            shards += [SimpleNamespace(**batch_windows(
+                [self.dataset.graphs[i] for i in self._shard(order, s, d)],
+                self.spec))
+                for d in range(self.num_shards) if d != self.shard_index]
+        return dataclasses.replace(b, **self._floor_windows(shards))
 
     def __iter__(self) -> Iterator[GraphBatch]:
         order = self._order()
@@ -259,9 +286,11 @@ class BucketedLoader:
                     t.join(timeout=0.1)
 
     def batch_ids(self) -> List[List[str]]:
-        """The ids of each batch in the current epoch's order."""
-        order, b = self._order(), self.batch_size
-        return [[self.dataset.ids[i] for i in order[s * b:(s + 1) * b]]
+        """The ids of each batch (this shard's) in the current epoch's
+        order."""
+        order = self._order()
+        return [[self.dataset.ids[i] for i in
+                 self._shard(order, s, self.shard_index)]
                 for s in range(len(self))]
 
 
@@ -359,17 +388,16 @@ def get_train_val_loaders(
     per_species_energy_baseline: bool = False,
     lg_cutoff: Optional[float] = None,
     device: Optional[torch.device | str] = None,
+    shard_index: int = 0,
 ) -> Tuple[BucketedLoader, BucketedLoader, BucketedLoader, float]:
     """Records -> (train_loader, val_loader, test_loader, mad), as the JAX
     function: the train loader shuffles and drops its last partial batch,
     the val loader drops it only when the split holds a whole batch, the
-    test loader takes batch 1.  The train loader's ``graph_stats`` holds
-    the graph stage's seconds and whether each split came from the
-    cache."""
-    if num_shards > 1:
-        raise NotImplementedError(
-            "num_shards > 1 (data parallelism) is not ported yet "
-            '(ROADMAP.md §1 "Multi-GPU")')
+    test loader takes batch 1.  With `num_shards` > 1 the train loader
+    yields shard `shard_index` of each step (this rank's); the val and
+    test loaders are unsharded, as in JAX.  The train loader's
+    ``graph_stats`` holds the graph stage's seconds and whether each split
+    came from the cache."""
     device = resolve_device(device)
     dat = filter_records(
         records, target=target,
@@ -447,7 +475,8 @@ def get_train_val_loaders(
                   extra_width=extra_width, seed=split_seed,
                   bucket_slack=bucket_slack, dense=dense, device=device)
     train_loader = BucketedLoader(train_ds, batch_size, shuffle=True,
-                                  drop_last=True, **shared)
+                                  drop_last=True, num_shards=num_shards,
+                                  shard_index=shard_index, **shared)
     # a val split smaller than one batch keeps its partial batch instead
     # of validating on nothing
     val_loader = BucketedLoader(val_ds, batch_size, shuffle=False,

@@ -228,6 +228,43 @@ def padded_labels(graphs: Sequence[GraphData], n_pad: int, g_pad: int,
             "extra_features": extra}
 
 
+def _windows(src, dst, lg_src, lg_dst, perm, lg_perm, n_pad: int) -> dict:
+    """The six ``win_*`` windows of a padded batch's index arrays (the
+    trash node and edge are the last of their bucket's rows)."""
+    n_trash, e_trash = n_pad - 1, len(src) - 1
+    return dict(
+        win_src=window_for(src, n_trash), win_dst=window_for(dst, n_trash),
+        win_src_sorted=window_for(src[perm], n_trash),
+        win_lg_src=window_for(lg_src, e_trash),
+        win_lg_dst=window_for(lg_dst, e_trash),
+        win_lg_src_sorted=window_for(lg_src[lg_perm], e_trash))
+
+
+def batch_windows(graphs: Sequence[GraphData], spec: BucketSpec) -> dict:
+    """The ``win_*`` windows :func:`batch_graphs` would measure on these
+    graphs in this bucket, from their index arrays alone (no features,
+    labels or device copies): what a data-parallel rank needs of the
+    other ranks' shards to floor its windows over the whole step."""
+    n_pad, e_pad, l_pad = spec.n_nodes, spec.n_edges, spec.n_lg_edges
+    src = np.full(e_pad, n_pad - 1, dtype=np.int64)
+    dst = np.full(e_pad, n_pad - 1, dtype=np.int64)
+    lg_src = np.full(l_pad, e_pad - 1, dtype=np.int64)
+    lg_dst = np.full(l_pad, e_pad - 1, dtype=np.int64)
+    n_off = e_off = l_off = 0
+    for g in graphs:
+        src[e_off:e_off + g.num_edges] = g.src + n_off
+        dst[e_off:e_off + g.num_edges] = g.dst + n_off
+        if g.num_lg_edges:
+            lg_src[l_off:l_off + g.num_lg_edges] = g.lg_src + e_off
+            lg_dst[l_off:l_off + g.num_lg_edges] = g.lg_dst + e_off
+        n_off += g.num_nodes
+        e_off += g.num_edges
+        l_off += g.num_lg_edges
+    return _windows(src, dst, lg_src, lg_dst,
+                    np.argsort(src, kind="stable"),
+                    np.argsort(lg_src, kind="stable"), n_pad)
+
+
 def batch_graphs(graphs: List[GraphData], spec: BucketSpec,
                  device: torch.device, atom_features: str = "cgcnn",
                  dtype: torch.dtype = torch.float32, target_width: int = 1,
@@ -307,15 +344,8 @@ def batch_graphs(graphs: List[GraphData], spec: BucketSpec,
 
     perm = np.argsort(src, kind="stable")
     lg_perm = np.argsort(lg_src, kind="stable")
-    windows = {}
-    if gather_windows:
-        windows = dict(
-            win_src=window_for(src, n_pad - 1),
-            win_dst=window_for(dst, n_pad - 1),
-            win_src_sorted=window_for(src[perm], n_pad - 1),
-            win_lg_src=window_for(lg_src, e_pad - 1),
-            win_lg_dst=window_for(lg_dst, e_pad - 1),
-            win_lg_src_sorted=window_for(lg_src[lg_perm], e_pad - 1))
+    windows = _windows(src, dst, lg_src, lg_dst, perm, lg_perm, n_pad) \
+        if gather_windows else {}
     return GraphBatch(
         z=i(z), atom_features=f(feat_table[z]), frac_coords=f(frac),
         node_graph=i(node_graph), node_mask=f(node_mask),

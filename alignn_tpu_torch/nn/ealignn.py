@@ -31,6 +31,7 @@ import torch
 from torch import nn
 
 from alignn_tpu_torch.graph.batch import GraphBatch
+from alignn_tpu_torch.nn.layers import set_batchnorm_group
 from alignn_tpu_torch.nn.models import (EV_A3_TO_GPA, _Embeddings, _Trunk,
                                         add_atomwise_heads, atomwise_heads,
                                         compute_cartesian_r)
@@ -123,10 +124,11 @@ class eALIGNNAtomWise(nn.Module):
     ``keep`` besides.  `dtype` is the compute dtype of the embeddings and
     the trunk, as in :class:`~alignn_tpu_torch.nn.models.ALIGNNAtomWise`;
     the weighted sums stay f32 whatever it is, as in JAX.  JAX's eALIGNN
-    has no per-layer remat, and neither has this one."""
+    has no per-layer remat, and neither has this one.  `group` is taken as
+    JAX's ``axis_name`` is (LayerNorm: nothing reduces across ranks)."""
 
     def __init__(self, cfg: eALIGNNAtomWiseConfig,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, group=None):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
@@ -138,6 +140,7 @@ class eALIGNNAtomWise(nn.Module):
         self.remat = False
         add_atomwise_heads(self, cfg, fc_out=cfg.output_features,
                            dtype=dtype)
+        set_batchnorm_group(self, group)
 
     def forward(self, batch: GraphBatch, frac_coords=None, r=None):
         cfg = self.cfg

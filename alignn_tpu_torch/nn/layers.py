@@ -88,6 +88,15 @@ class MaskedBatchNorm(nn.Module):
     ``nn.BatchNorm1d`` would count the padded rows and the trash slot.
     With ``update_stats`` False (a layer's recompute under
     ``remat_layers``) the running statistics stay where they are.
+
+    With a process ``group`` (JAX's ``axis_name``; set by the model's
+    constructor, :func:`set_batchnorm_group`) the row count and the two
+    sums are packed into one buffer and summed over the group's ranks
+    before the statistics are formed, so that every rank normalises with
+    the statistics of the whole data-parallel batch.  The sum is
+    differentiable (:func:`~alignn_tpu_torch.parallel.mesh.
+    all_reduce_sum`): one collective a layer forward and one backward,
+    whose sum carries each rank's share of the other ranks' gradient.
     """
 
     def __init__(self, features: int, momentum: float = 0.1,
@@ -100,6 +109,7 @@ class MaskedBatchNorm(nn.Module):
         self.momentum = momentum
         self.epsilon = epsilon
         self.update_stats = True
+        self.group = None
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 train: Optional[bool] = None) -> torch.Tensor:
@@ -110,10 +120,20 @@ class MaskedBatchNorm(nn.Module):
             mean, var = self.mean.to(xf.dtype), self.var.to(xf.dtype)
         else:
             w = xf.new_ones(x.shape[0]) if mask is None else mask.to(xf.dtype)
-            cnt = torch.clamp_min(w.sum(), 1.0)
-            mean = (xf * w[:, None]).sum(dim=0) / cnt
-            var = torch.clamp_min(
-                ((xf * xf) * w[:, None]).sum(dim=0) / cnt - mean * mean, 0.0)
+            cnt = w.sum()
+            sum_x = (xf * w[:, None]).sum(dim=0)
+            sum_x2 = ((xf * xf) * w[:, None]).sum(dim=0)
+            if self.group is not None:
+                from alignn_tpu_torch.parallel.mesh import all_reduce_sum
+
+                f = sum_x.shape[0]
+                packed = all_reduce_sum(
+                    torch.cat([cnt.reshape(1), sum_x, sum_x2]), self.group)
+                cnt, sum_x, sum_x2 = packed[0], packed[1:f + 1], \
+                    packed[f + 1:]
+            cnt = torch.clamp_min(cnt, 1.0)
+            mean = sum_x / cnt
+            var = torch.clamp_min(sum_x2 / cnt - mean * mean, 0.0)
             if self.update_stats:
                 with torch.no_grad():
                     m = self.momentum
@@ -125,6 +145,15 @@ class MaskedBatchNorm(nn.Module):
 
 
 NORMS = {"layernorm": MaskedLayerNorm, "batchnorm": MaskedBatchNorm}
+
+
+def set_batchnorm_group(module: nn.Module, group) -> None:
+    """Every :class:`MaskedBatchNorm` under `module` reduces its batch
+    statistics over the ranks of `group` (None: this rank's batch alone).
+    A LayerNorm model has none, and nothing changes."""
+    for m in module.modules():
+        if isinstance(m, MaskedBatchNorm):
+            m.group = group
 
 
 class RBFExpansion(nn.Module):

@@ -31,7 +31,7 @@ from alignn_tpu_torch.graph.batch import GraphBatch
 from alignn_tpu_torch.nn.layers import (ALIGNNConv, Dense, DenseWiring,
                                         EdgeGatedGraphConv, MaskedBatchNorm,
                                         MaskedLayerNorm, MLPLayer,
-                                        RBFExpansion)
+                                        RBFExpansion, set_batchnorm_group)
 from alignn_tpu_torch.ops.basis import (bond_cosines, bond_cosines_dense,
                                         cutoff_function_based_edges)
 from alignn_tpu_torch.ops.eggc import SOFT_AGG_EPS, gather_nodes, \
@@ -298,11 +298,14 @@ class ALIGNN(nn.Module):
 
     `dtype` is the compute dtype of the embeddings and the trunk (JAX's
     ``dtype``; None or float32 for f32, bfloat16, float16); the output
-    head computes in f32.  The parameters stay f32.
+    head computes in f32.  The parameters stay f32.  `group` (JAX's
+    ``axis_name``) is the process group over which the BatchNorm layers
+    reduce their batch statistics in data-parallel training (None: this
+    rank's batch).
     """
 
     def __init__(self, cfg: ALIGNNConfig,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, group=None):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
@@ -314,6 +317,7 @@ class ALIGNN(nn.Module):
             self.fc = Dense(cfg.hidden_features, cfg.num_classes
                             if cfg.classification else cfg.output_features)
             _init_link_bias(self)
+        set_batchnorm_group(self, group)
 
     def forward(self, batch: GraphBatch) -> torch.Tensor:
         cfg = self.cfg
@@ -339,17 +343,20 @@ class ALIGNNAtomWise(nn.Module):
     force computation, incl. natoms multiplication and the short-bond
     penalty), `atomwise_pred` [N, A], `additional` [G, Fadd] and
     `bondlength` [E].  `dtype` as in :class:`ALIGNN`: the heads compute
-    in f32, so the energy, forces and stress are f32.
+    in f32, so the energy, forces and stress are f32.  `group` is taken as
+    JAX's ``axis_name`` is; the model's norms are LayerNorms, which reduce
+    nothing across ranks.
     """
 
     def __init__(self, cfg: ALIGNNAtomWiseConfig,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, group=None):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
         self.embeddings = _Embeddings(cfg, dtype=dtype)
         self.trunk = _Trunk(cfg, dtype=dtype)
         add_atomwise_heads(self, cfg, dtype=dtype)
+        set_batchnorm_group(self, group)
 
     def forward(self, batch: GraphBatch, r: torch.Tensor):
         cfg = self.cfg

@@ -22,13 +22,22 @@ capture, and zeroed in place), the optimizer's state and its
 device-tensor learning rate (``train/optim.py``).  A capture or replay
 error raises; ``cuda_graph=False`` runs the eager step, and on the CPU
 the compiled step runs eagerly over the same static batches.  There is
-no donation; the data-parallel step (``axis_name``) comes with DDP.
+no donation.
+
+The data-parallel step (``make_train_step(..., group=...)``, JAX's
+``make_dp_train_step``, :mod:`alignn_tpu_torch.parallel.dp`) is the same
+step with two collectives after the backward: one all-reduce over the flat
+buffer that holds every gradient (:func:`build_grads`), then one over the
+stacked losses, each a SUM divided by the world size (JAX's ``pmean``).
+Every rank then applies the same update.  The collectives are recorded in
+the step's CUDA graph, as the BatchNorm sums of a property model
+(``nn/layers.py``) are.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import torch
 from torch import nn
@@ -100,24 +109,49 @@ def _check_state(state: TrainState, model: nn.Module):
                          "the step was made for")
 
 
-def build_grads(model: nn.Module) -> None:
-    """Give every parameter a gradient tensor of its own, once: the step
-    zeroes them in place and the backward accumulates into them, so a
-    captured graph keeps their addresses, and a parameter that this loss
-    does not reach (the last L-stage's pair features) keeps a zero
-    gradient, so that weight decay still applies, as in optax."""
-    for p in model.parameters():
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
+def build_grads(model: nn.Module) -> List[torch.Tensor]:
+    """Give every parameter a gradient tensor, once, and return the flat
+    buffers (one a dtype) whose views they are.
+
+    The step zeroes the gradients in place and the backward accumulates
+    into them, so a captured graph keeps their addresses; a parameter that
+    this loss does not reach (the last L-stage's pair features) keeps a
+    zero gradient, so that weight decay still applies, as in optax.  The
+    data-parallel step all-reduces each flat buffer in one collective.  A
+    gradient that is already there is copied into its view."""
+    params = list(model.parameters())
+    built = model.__dict__.get("_grad_views")
+    if built is not None and len(built[1]) == len(params) and all(
+            p.grad is v for p, v in zip(params, built[1])):
+        return built[0]
+    by_dtype: Dict[torch.dtype, List[nn.Parameter]] = {}
+    for p in params:
+        by_dtype.setdefault(p.dtype, []).append(p)
+    flats, views = [], {}
+    for dtype, group in by_dtype.items():
+        flat = torch.zeros(sum(p.numel() for p in group), dtype=dtype,
+                           device=group[0].device)
+        off = 0
+        for p in group:
+            view = flat[off:off + p.numel()].view_as(p)
+            if p.grad is not None:
+                view.copy_(p.grad)
+            p.grad = views[id(p)] = view
+            off += p.numel()
+        flats.append(flat)
+    model.__dict__["_grad_views"] = (flats, [views[id(p)] for p in params])
+    return flats
 
 
 def make_train_step(model: nn.Module, criterion: str = "l1",
                     classification: bool = False,
-                    cuda_graph: bool = True) -> Callable:
+                    cuda_graph: bool = True, group=None) -> Callable:
     """(state, batch) -> (state, losses), updating the model in place;
     compiled per batch signature (``cuda_graph=False``: the eager
-    step)."""
+    step).  With a process `group` the gradients and losses are averaged
+    over its ranks before the update (the data-parallel step)."""
     optimizer = None   # the state's, bound at its first step
+    flats: List[torch.Tensor] = []   # build_grads' buffers
 
     def fn(batch: GraphBatch):
         optimizer.zero_grad(set_to_none=False)
@@ -125,8 +159,17 @@ def make_train_step(model: nn.Module, criterion: str = "l1",
         losses, _res = _forward_and_loss(model, batch, criterion,
                                          classification, create_graph=True)
         losses["loss"].backward()
+        losses = {k: v.detach() for k, v in losses.items()}
+        if group is not None:
+            from alignn_tpu_torch.parallel.mesh import all_reduce_mean_
+
+            for flat in flats:
+                all_reduce_mean_(flat, group)
+            mean = all_reduce_mean_(torch.stack(list(losses.values())),
+                                    group)
+            losses = dict(zip(losses, mean.unbind()))
         optimizer.step()
-        return {k: v.detach() for k, v in losses.items()}
+        return losses
 
     compiled = CompiledStep(fn, pool_key=model) if cuda_graph else fn
 
@@ -138,7 +181,7 @@ def make_train_step(model: nn.Module, criterion: str = "l1",
             optimizer = state.optimizer
             if cuda_graph:
                 compiled.clear()
-        build_grads(model)
+        flats[:] = build_grads(model)
         losses = compiled(batch)
         state.step += 1
         return state, losses

@@ -16,6 +16,16 @@ in ``config.output_dir``:
 - ``learning_curve.png`` (:mod:`~alignn_tpu_torch.train.plots`) once the
   epochs are done, where matplotlib is installed.
 
+Data-parallel training (:func:`~alignn_tpu_torch.parallel.dp.
+train_model_dp`) runs this loop on every rank with JAX's two hooks:
+``train_step_factory`` makes the data-parallel step and
+``model_axis_name`` is the process group the BatchNorm statistics reduce
+over.  The train loader yields each rank its own shard; the other loaders
+are unsharded.  Rank 0 (shard 0) alone validates, writes the artifacts and
+runs the result and test passes; it tells the other ranks when early
+stopping ends the run.  The train-set prediction dump is skipped under
+shards, as in JAX.
+
 The ``.mpk`` weight files are the JAX package's layout, so alignn_tpu
 loads them.  The learning rate of each epoch is ``epoch_lr``'s, written
 into the optimizer on the host.  Every train and eval step (the epochs,
@@ -31,7 +41,7 @@ import csv
 import json
 import os
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -64,17 +74,18 @@ COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16,
                   "float16": torch.float16, "float64": None}
 
 
-def build_model(model_cfg, dtype: Optional[torch.dtype] = None
-                ) -> torch.nn.Module:
+def build_model(model_cfg, dtype: Optional[torch.dtype] = None,
+                group=None) -> torch.nn.Module:
     """The model of a config union member, with compute dtype `dtype`
-    (None: f32, the serving models)."""
+    (None: f32, the serving models) and the process group its BatchNorm
+    statistics reduce over (JAX's ``axis_name``; None: none)."""
     name = getattr(model_cfg, "name", "alignn_atomwise")
     if name == "alignn":
-        return ALIGNN(model_cfg, dtype=dtype)
+        return ALIGNN(model_cfg, dtype=dtype, group=group)
     if name == "alignn_atomwise":
-        return ALIGNNAtomWise(model_cfg, dtype=dtype)
+        return ALIGNNAtomWise(model_cfg, dtype=dtype, group=group)
     if name == "ealignn_atomwise":
-        return eALIGNNAtomWise(model_cfg, dtype=dtype)
+        return eALIGNNAtomWise(model_cfg, dtype=dtype, group=group)
     raise ValueError(f"unknown model name: {name}")
 
 
@@ -148,23 +159,30 @@ def train_model(config: TrainingConfig, train_loader: BucketedLoader,
                 test_loader: Optional[BucketedLoader] = None,
                 model: Optional[torch.nn.Module] = None,
                 restart_state_path: Optional[str] = None,
-                restart_params_path: Optional[str] = None
-                ) -> Dict[str, Any]:
+                restart_params_path: Optional[str] = None,
+                train_step_factory: Optional[Callable] = None,
+                model_axis_name=None) -> Dict[str, Any]:
     """Run the training campaign on the loaders' device; returns a summary
     (best validation loss, epochs run, seconds per epoch, each step's
     loss, the test metric and the final ``state``).
 
     A fresh model draws its weights from ``random_seed`` through a CPU
-    generator, so the card and the CPU start from the same weights, and
-    computes in ``config.dtype`` (:data:`COMPUTE_DTYPES`); a model passed
-    in keeps its own.  The parameters, gradients, optimizer state and
-    losses stay f32.
+    generator, so the card and the CPU start from the same weights (and
+    every data-parallel rank from the same), and computes in
+    ``config.dtype`` (:data:`COMPUTE_DTYPES`); a model passed in keeps its
+    own.  The parameters, gradients, optimizer state and losses stay f32.
+    `train_step_factory` ``(model, criterion, classification) -> step``
+    replaces :func:`make_train_step`; `model_axis_name` is the process
+    group a fresh model's BatchNorm reduces over.
     """
     t0 = time.time()
     output_dir = config.output_dir
     os.makedirs(output_dir, exist_ok=True)
-    config.dump(os.path.join(output_dir, "config.json"))
-    dtype = COMPUTE_DTYPES[config.dtype]
+    dtype = COMPUTE_DTYPES[config.dtype]   # an unknown name raises first
+    sharded = train_loader.num_shards > 1
+    is_main = train_loader.shard_index == 0
+    if is_main:
+        config.dump(os.path.join(output_dir, "config.json"))
 
     classification = config.classification_threshold is not None or \
         getattr(config.model, "classification", False)
@@ -172,7 +190,7 @@ def train_model(config: TrainingConfig, train_loader: BucketedLoader,
         "alignn_atomwise", "ealignn_atomwise")
     if model is None:
         model = init_parameters(
-            build_model(config.model, dtype=dtype),
+            build_model(config.model, dtype=dtype, group=model_axis_name),
             torch.Generator().manual_seed(config.random_seed or 123))
     sample = next(iter(val_loader if len(val_loader) else train_loader))
     state = create_train_state(
@@ -209,8 +227,12 @@ def train_model(config: TrainingConfig, train_loader: BucketedLoader,
         save_params(os.path.join(output_dir, name), *flax_from_module(model),
                     meta=ckpt_meta)
 
-    train_step = make_train_step(model, criterion=config.criterion,
-                                 classification=classification)
+    if train_step_factory is not None:
+        train_step = train_step_factory(model, config.criterion,
+                                        classification)
+    else:
+        train_step = make_train_step(model, criterion=config.criterion,
+                                     classification=classification)
     eval_step = make_eval_step(model, criterion=config.criterion,
                                classification=classification)
     spec = train_loader.spec
@@ -238,6 +260,11 @@ def train_model(config: TrainingConfig, train_loader: BucketedLoader,
         step_losses.append([m["loss"] for m in train_acc])
         edges_s = edges_per_batch * len(train_acc) / max(ep_time, 1e-9)
 
+        if not is_main:   # rank 0 validates and writes
+            if config.n_early_stopping is not None and \
+                    _from_rank0(False, model_axis_name, model):
+                break
+            continue
         val_acc = [_losses_to_host(eval_step(state, batch)[0])
                    for batch in val_loader]
         train_metrics, val_metrics = _mean(train_acc), _mean(val_acc)
@@ -264,15 +291,22 @@ def train_model(config: TrainingConfig, train_loader: BucketedLoader,
                     save_weights("best_model.mpk")
             else:
                 no_improve += 1
-        if config.n_early_stopping is not None and \
-                no_improve >= config.n_early_stopping:
-            print(f"early stopping at epoch {epoch + 1}")
-            break
+        if config.n_early_stopping is not None:
+            stop = no_improve >= config.n_early_stopping
+            if sharded:
+                _from_rank0(stop, model_axis_name, model)
+            if stop:
+                print(f"early stopping at epoch {epoch + 1}")
+                break
 
     summary: Dict[str, Any] = {
         "best_val_loss": float(best_loss), "epochs_run": len(epoch_s),
         "epoch_s": epoch_s, "steps_per_epoch": len(train_loader),
         "step_losses": step_losses, "edges_per_batch": edges_per_batch}
+    if not is_main:
+        summary["train_time_s"] = time.time() - t0
+        summary["state"] = state
+        return summary
     results = _Results(config, is_atomwise, eval_step, state)
     if config.store_outputs and len(val_loader):
         dumpjson(results.per_sample(val_loader),
@@ -300,13 +334,23 @@ def train_model(config: TrainingConfig, train_loader: BucketedLoader,
         summary.update(_test_pass(config, classification, results,
                                   test_loader))
     if config.write_predictions and len(train_loader) and \
-            not classification:
+            not classification and not sharded:
         _train_predictions(output_dir, eval_step, state, train_loader)
     if config.write_checkpoint:
         save_weights("last_model.mpk")
     summary["train_time_s"] = time.time() - t0
     summary["state"] = state
     return summary
+
+
+def _from_rank0(flag: bool, group, model: torch.nn.Module) -> bool:
+    """Rank 0's `flag` on every rank of `group` (the default group for
+    None): whether early stopping ends the run."""
+    import torch.distributed as dist
+
+    t = torch.tensor([float(flag)], device=next(model.parameters()).device)
+    dist.broadcast(t, 0, group=group)
+    return bool(t.item())
 
 
 def _losses_to_host(losses: Dict[str, torch.Tensor]) -> Dict[str, float]:

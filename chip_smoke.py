@@ -4,14 +4,18 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --segments [--root DIR]
     python3 chip_smoke.py --pairs [--steps] [--root DIR]
+    python3 chip_smoke.py --dp | --bf16-order
 
+``--dp`` runs phase 13 alone; ``--bf16-order`` runs bench.py's bf16
+dense force step three times in one process and reports whether the
+backward's operations keep their order (:func:`order_probe`).
 ``--segments`` runs K1 and K2 alone (phase 2's K1/K2 part at the 512-atom
 L-stage and the sparse training batch's, with eggc.cu's ptxas lines);
 ``--pairs`` runs K4 alone at the same two dense shapes (warm and cold,
 the profiler's split, ptxas, the SASS of its inner loop, the SM clock,
 a sha256 of each output), with ``--steps`` also the device time of the
-dense train step (f32, bf16) and of the dense MD chunk.  Neither prints
-an ``{"ok": ...}`` line; ``--root DIR`` imports the port from the
+dense train step (f32, bf16) and of the dense MD chunk.  None of these
+prints an ``{"ok": ...}`` line; ``--root DIR`` imports the port from the
 checkout at DIR (another commit, for an A/B in one call).
 
 Phases:
@@ -160,6 +164,29 @@ Phases:
    against the CPU port, ms a call beside the plain Calculator's.  Each
    run prints ms a call or step, the device's busy share and launches
    per kernel, and holds its need/banned launch lists.
+
+13. data parallelism, the server and the legacy CLI (``dp_phases``):
+   ``dp_train`` runs bench.py's default E/F/S step (bf16, 64 rocksalt
+   cells, dense and sparse) through ``make_dp_train_step`` on an NCCL
+   group of one rank (the card's host has one GPU), compiled, 12 steps,
+   beside the single-rank compiled step, both under deterministic
+   algorithms: losses and final parameters bit for bit, ms a step,
+   device ms, the all-reduce's device ms, launches a replayed DP step;
+   ``dp_property`` runs property run (a)'s config for one epoch through
+   ``train_model_dp`` on that group against the single-rank trainer, bit
+   for bit; ``gloo_two_ranks`` starts two processes of this script
+   (``--gloo-rank``) that share cuda:0 under gloo: 4 eager sparse E/F/S
+   steps of 8 cells a rank, the ranks' parameters bit for bit, each
+   first step against the CPU port's two-rank step (or the gloo build's
+   refusal of CUDA tensors, recorded); ``serve`` serves
+   docs/mlearn_r4/Si with ``--ff`` on an ephemeral port (/health,
+   /predict on si8, si64 and a batch with si512, /ff on si64, a malformed
+   request): /ff bit for bit ``Calculator.calculate``, /predict within
+   1e-5 of ``zoo.predict_structures``, warm ms a request, graphs
+   captured, K1/K2 launches a request; ``legacy`` trains one epoch of the
+   property model through ``cli.legacy`` from a dataset cache file.
+   ``python3 chip_smoke.py --dp`` runs this phase alone (no ``{"ok"}``
+   line).
 
 K3 is also launched twice at both dense shapes (bit-identical), with its
 fully masked (padded) nodes exactly 0 and one fill of its output timed
@@ -1612,12 +1639,14 @@ def loader_phase(weights, failures: list):
     made as bench.py makes them (seed 0), through the windowed sparse train
     step (ALIGNN_TPU_ENABLE_WGATHER set by the caller): every batch's
     floored windows, the loader's floors, the loss per step, the host time
-    to build a batch against the step's, and the launches of the epoch."""
+    to build a batch against the step's (and a data-parallel rank's, shard
+    0 of 2, with the time the other shard's windows take), and the
+    launches of the epoch."""
     import torch
 
     from alignn_tpu_torch.data.dataset import GraphDataset
     from alignn_tpu_torch.data.loader import BucketedLoader, worst_case_spec
-    from alignn_tpu_torch.graph.batch import WIN_FIELDS
+    from alignn_tpu_torch.graph.batch import WIN_FIELDS, batch_windows
     from alignn_tpu_torch.graph.build import rocksalt_graphs
     from alignn_tpu_torch.nn.models import (ALIGNNAtomWise,
                                             ALIGNNAtomWiseConfig)
@@ -1639,6 +1668,22 @@ def loader_phase(weights, failures: list):
         loader._make_batch(order[s * 64:(s + 1) * 64])
         torch.cuda.synchronize()
         build_ms.append((time.perf_counter() - t0) * 1e3)
+    # a data-parallel rank's batch (shard 0 of 2): its own batch, and the
+    # other shard's windows from that shard's index arrays alone
+    dp_loader = BucketedLoader(
+        GraphDataset(graphs, [f"rocksalt-{i}" for i in range(256)]), 64,
+        shuffle=True, spec=spec, seed=0, num_shards=2)
+    dp_order = dp_loader._order()
+    dp_build_ms, windows_ms = [], []
+    for s in range(2):
+        t0 = time.perf_counter()
+        dp_loader._batch_for_step(dp_order, s)
+        torch.cuda.synchronize()
+        dp_build_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        batch_windows([graphs[i] for i in dp_loader._shard(dp_order, s, 1)],
+                      spec)
+        windows_ms.append((time.perf_counter() - t0) * 1e3)
     model = ALIGNNAtomWise(ALIGNNAtomWiseConfig(**TRAIN_CFG)).cuda()
     model.load_state_dict(weights)
     it = iter(loader)
@@ -1664,7 +1709,9 @@ def loader_phase(weights, failures: list):
     launches = read_launches()
     row = {"cell": "rocksalt_256_loader", "graphs": 256, "batch_size": 64,
            "bucket": list(vars(spec).values()), "graph_build_s": graph_s,
-           "host_batch_build_ms": build_ms, "steps": steps,
+           "host_batch_build_ms": build_ms,
+           "host_batch_build_ms_dp_shard_0_of_2": dp_build_ms,
+           "other_shard_windows_ms": windows_ms, "steps": steps,
            "floors": dict(loader._win_floor),
            # the compiled step: windows at their floor, one signature
            "signatures": len(step.compiled.loops),
@@ -4141,6 +4188,702 @@ def pairs_probe(steps: bool) -> int:
     return 1 if failures else 0
 
 
+# ---------------------------------------------------------------------------
+# data parallelism (NCCL at world size 1; two gloo ranks on cuda:0), the
+# warm-model server and the legacy CLI
+# ---------------------------------------------------------------------------
+
+DP_DIR = os.path.join(REPO, "build", "dp")
+DP_STEPS = 12
+# the rank step of the two gloo ranks: 8 cells a rank, sparse, eager
+GLOO_CELLS, GLOO_STEPS = 8, 4
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def nccl_world_of_one():
+    """An NCCL process group of one rank on this process's card (the
+    card's host has one GPU), destroyed after; yields its mesh."""
+    import torch.distributed as dist
+
+    from alignn_tpu_torch.parallel.mesh import (initialize_distributed,
+                                                make_mesh)
+
+    initialize_distributed(f"localhost:{free_port()}", 1, 0, device="cuda")
+    try:
+        yield make_mesh(1)
+    finally:
+        dist.destroy_process_group()
+
+
+def compiled_steps(weights, batch, dtype, mesh, steps: int = DP_STEPS):
+    """`steps` compiled E/F/S steps (two eager sightings, a capture,
+    replays) of bench.py's model from `weights` on `batch`, single-rank
+    (`mesh` None) or through ``make_dp_train_step``; then one replay
+    profiled.  Returns (row, [steps, losses] tensor, final state dict,
+    launches counted over the run)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from alignn_tpu_torch.nn.models import (ALIGNNAtomWise,
+                                            ALIGNNAtomWiseConfig)
+    from alignn_tpu_torch.parallel.dp import make_dp_train_step
+    from alignn_tpu_torch.train.optim import build_optimizer
+    from alignn_tpu_torch.train.state import (create_train_state,
+                                              make_train_step)
+
+    model = ALIGNNAtomWise(ALIGNNAtomWiseConfig(**TRAIN_CFG), dtype=dtype)
+    model.load_state_dict(weights)
+    state = create_train_state(model, batch,
+                               build_optimizer("adamw", 1e-3, 1e-5))
+    step = make_train_step(model) if mesh is None else \
+        make_dp_train_step(model, mesh)
+    torch.cuda.synchronize()
+    reset_launches()
+    times, losses = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        state, out = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        losses.append(torch.stack(list(out.values())))
+    launches = read_launches()
+    final = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    for _ in range(2):   # the first pays the profiler's start-up
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(state, batch)
+            torch.cuda.synchronize()
+    by_name, n_ops = device_ms_by_name(prof)
+    nccl = {k: v for k, v in by_name.items() if "nccl" in k.lower()}
+    loops = list(step.compiled.loops.values())
+    row = {"ms_steps": times,
+           "ms_per_step": float(np.median(times[DP_STEPS // 4:])),
+           "device_ms": sum(by_name.values()), "device_ops": n_ops,
+           "all_reduce_device_ms": sum(nccl.values()),
+           "all_reduce_kernels": {k[:90]: v for k, v in nccl.items()},
+           "captures": step.compiled.captures,
+           "capture_ms": [lp.capture_ms for lp in loops if lp.graph],
+           "launches_per_replayed_step": kernel_launches_in(prof),
+           "host_ops_per_replayed_step": host_ops_in(prof)}
+    del state, model, step, prof
+    torch.cuda.empty_cache()
+    return row, torch.stack(losses), final, launches
+
+
+def dp_train_run(mode: str, out: str) -> int:
+    """``--dp-train single|dp OUT``: bench.py's default E/F/S step (bf16,
+    64 rocksalt cells, seeded weights), dense then sparse, 12 compiled
+    steps each under deterministic algorithms (:func:`compiled_steps`),
+    single-rank or through ``make_dp_train_step`` on an NCCL group of one
+    rank; the rows, losses and final parameters written under `out`.
+
+    Each side runs in a fresh process with the same history: in one
+    process two bf16 runs of the force step can differ in their last bits
+    even under deterministic algorithms, because the autograd engine
+    orders the outer backward's nodes by sequence numbers kept per thread,
+    the force's inner backward creates its nodes on the device's worker
+    thread, and that counter runs on from one run to the next
+    (``--bf16-order`` shows the backward's operations in another order
+    while the forward stays bit for bit)."""
+    import torch
+
+    from alignn_tpu_torch.nn.models import (ALIGNNAtomWise,
+                                            ALIGNNAtomWiseConfig,
+                                            init_parameters)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    weights = init_parameters(ALIGNNAtomWise(ALIGNNAtomWiseConfig(
+        **TRAIN_CFG)), torch.Generator().manual_seed(0)).state_dict()
+    batches = train_batches(rocksalt_b64(), torch.device("cuda"))
+    rows = {}
+    with (nccl_world_of_one() if mode == "dp" else
+          contextlib.nullcontext()) as mesh:
+        for layout in ("dense", "sparse"):
+            with deterministic():
+                row, losses, final, launches = compiled_steps(
+                    weights, batches[layout], torch.bfloat16, mesh)
+            rows[layout] = {**row, "launches_over_run": launches}
+            torch.save({"losses": losses.cpu(),
+                        "params": {k: v.cpu() for k, v in final.items()}},
+                       os.path.join(out, f"{mode}_{layout}.pt"))
+    rows["determinism_warnings"] = sorted(DETERMINISM_WARNINGS)
+    write_json(os.path.join(out, f"{mode}.json"), rows)
+    return 0
+
+
+def dp_train_phase(failures: list) -> tuple:
+    """bench.py's default E/F/S step (bf16, 64 rocksalt cells), dense and
+    sparse, through ``make_dp_train_step`` on an NCCL group of one rank,
+    compiled (the all-reduces inside the CUDA graph), beside the
+    single-rank compiled step, each in a process of its own
+    (:func:`dp_train_run`, under a hard timeout), both under deterministic
+    algorithms: their 12 steps' losses and final parameters bit for bit;
+    ms a step (median of the last 9, host clock), the profiled replay's
+    device ms, the all-reduce's device ms and the kernels' launches a
+    step.  Launches are counted from 0 over each DP run (its eager
+    sightings and its capture; a replay moves no counter).  Returns (rows,
+    launches a DP step by layout, from the profiler)."""
+    import shutil
+
+    import torch
+
+    t0 = time.perf_counter()
+    out = os.path.join(DP_DIR, "dp_train")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    for mode in ("single", "dp"):
+        res = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--dp-train", mode,
+             out], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            timeout=300)
+        if res.returncode != 0:
+            failures.append(f"dp_train {mode}: "
+                            f"{res.stdout.decode(errors='replace')[-2000:]}")
+            return {"seconds": time.perf_counter() - t0}, {}
+    runs = {mode: read_json(os.path.join(out, f"{mode}.json"))
+            for mode in ("single", "dp")}
+    rows, per_step = {}, {}
+    for layout in ("dense", "sparse"):
+        a, b = (torch.load(os.path.join(out, f"{mode}_{layout}.pt"))
+                for mode in ("single", "dp"))
+        differ = [k for k in a["params"]
+                  if not torch.equal(a["params"][k], b["params"][k])]
+        single, dp = runs["single"][layout], runs["dp"][layout]
+        launches = dp.pop("launches_over_run")
+        single.pop("launches_over_run")
+        row = {"layout": layout, "dtype": "bfloat16", "dp": dp,
+               "single": single,
+               "losses_bitwise": bool(torch.equal(a["losses"], b["losses"])),
+               "params_bitwise": not differ, "params_differing": differ[:5],
+               "launches_over_run": launches}
+        rows[layout] = row
+        per_step[layout] = dp["launches_per_replayed_step"]
+        if not (row["losses_bitwise"] and row["params_bitwise"]):
+            failures.append(f"dp_train {layout}: world-size-1 DP step vs "
+                            f"single-rank step, losses bitwise "
+                            f"{row['losses_bitwise']}, params differing "
+                            f"{differ[:5]}")
+        if dp["captures"] != 1:
+            failures.append(f"dp_train {layout}: {dp['captures']} captures")
+        if not torch.isfinite(b["losses"]).all():
+            failures.append(f"dp_train {layout}: non-finite losses")
+        need, banned = TRAIN_KERNELS[layout]
+        if any(launches[k] <= 0 for k in need) or \
+                any(launches[k] != 0 for k in banned) or \
+                any(dp["launches_per_replayed_step"][k] <= 0 for k in need):
+            failures.append(f"dp_train {layout}: launches {launches}, "
+                            f"replay {dp['launches_per_replayed_step']} "
+                            f"(need {need}, none of {banned})")
+    rows["determinism_warnings"] = sorted(
+        set(runs["single"]["determinism_warnings"])
+        | set(runs["dp"]["determinism_warnings"]))
+    rows["seconds"] = time.perf_counter() - t0
+    return rows, per_step
+
+
+@contextlib.contextmanager
+def trainer_dp(n_devices: int = 1):
+    """``cli.train``'s single-rank trainer replaced by ``train_model_dp``
+    over the initialised group inside the ``with``."""
+    from alignn_tpu_torch.cli import train as cli_train_mod
+    from alignn_tpu_torch.parallel.dp import train_model_dp
+
+    single = cli_train_mod.train_model
+    cli_train_mod.train_model = lambda config, tr, va, te, **kw: \
+        train_model_dp(config, tr, va, te, n_devices=n_devices, **kw)
+    try:
+        yield
+    finally:
+        cli_train_mod.train_model = single
+
+
+def dp_property_phase(failures: list) -> dict:
+    """Property run (a)'s config (the full-width BatchNorm model, batch
+    64, 512 train cells, one epoch, no result files) through
+    ``train_model_dp`` on the NCCL group of one rank, beside the
+    single-rank trainer, both compiled under deterministic algorithms, from
+    (a)'s graph cache: step losses, validation history and final weights
+    bit for bit; K1/K2 launched in the DP run (counted from 0 over it)."""
+    import shutil
+
+    import torch
+
+    t0 = time.perf_counter()
+    root = os.path.join(TRAIN_CLI_DIR, "rocksalt640")
+    cache = os.path.join(TRAIN_CLI_DIR, "out_sparse")
+    if not os.path.exists(os.path.join(cache, "graph_cache")):
+        write_rocksalt_folder(root, TRAIN_CLI_CELLS)   # --dp alone
+        cache = None
+    os.makedirs(DP_DIR, exist_ok=True)
+    cfg = write_json(os.path.join(DP_DIR, "property_det.json"),
+                     {**PROPERTY_RUN, "epochs": 1, "n_test": 4,
+                      "store_outputs": False, "write_predictions": False,
+                      "write_checkpoint": False})
+    runs = {}
+    with deterministic():
+        for mode in ("single", "dp"):
+            out = os.path.join(DP_DIR, f"property_{mode}")
+            with (trainer_dp() if mode == "dp" else
+                  contextlib.nullcontext()):
+                summary, _tap, seconds, launches, peak = cli_run(
+                    root, cfg, out, cache)
+            runs[mode] = (summary["step_losses"], final_weights(summary),
+                          read_json(os.path.join(out, "history_val.json")),
+                          seconds, launches, summary["epoch_s"])
+            del summary, _tap
+            torch.cuda.empty_cache()
+    pair = runs_apart(runs["dp"][0], runs["dp"][1], runs["single"][0],
+                      runs["single"][1])
+    pair["history_val_bitwise"] = runs["dp"][2] == runs["single"][2]
+    row = {"config": "train_cli (a), 1 epoch", **pair,
+           "seconds": {m: r[3] for m, r in runs.items()},
+           "epoch_s": {m: r[5] for m, r in runs.items()},
+           "launches_dp_run": runs["dp"][4]}
+    if not (pair["bitwise"] and pair["history_val_bitwise"]):
+        failures.append(f"dp_property: train_model_dp at world size 1 vs "
+                        f"the single-rank trainer {pair}")
+    need, banned = CLI_KERNELS["sparse"]
+    if any(runs["dp"][4][k] <= 0 for k in need) or \
+            any(runs["dp"][4][k] != 0 for k in banned):
+        failures.append(f"dp_property: launches {runs['dp'][4]}")
+    row["seconds_total"] = time.perf_counter() - t0
+    return row
+
+
+def gloo_rank_main(rank: int, port: int, out: str) -> int:
+    """One of two gloo ranks sharing cuda:0 (``--gloo-rank``): the sparse
+    E/F/S step of bench.py's model (f32, seeded weights) on this rank's 8
+    of the first 16 rocksalt cells (``BucketedLoader(num_shards=2)``),
+    eager, 4 steps; then the same first step on the port on the CPU (the
+    same group, CPU tensors).  Writes its numbers to `out`/rank<r>.json.
+    A gloo build that refuses CUDA tensors is recorded, not failed."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from alignn_tpu_torch.data.dataset import GraphDataset
+    from alignn_tpu_torch.data.loader import BucketedLoader, worst_case_spec
+    from alignn_tpu_torch.graph.build import rocksalt_graphs
+    from alignn_tpu_torch.nn.models import (ALIGNNAtomWise,
+                                            ALIGNNAtomWiseConfig,
+                                            init_parameters)
+    from alignn_tpu_torch.parallel.dp import make_dp_train_step
+    from alignn_tpu_torch.parallel.mesh import (initialize_distributed,
+                                                make_mesh)
+    from alignn_tpu_torch.train.optim import build_optimizer
+    from alignn_tpu_torch.train.state import create_train_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(4)    # two ranks on the host's 8 cores
+    initialize_distributed(f"localhost:{port}", 2, rank, device="cuda",
+                           backend="gloo")
+    result: dict = {"rank": rank}
+    try:
+        probe = torch.ones(4, device="cuda")
+        try:
+            dist.all_reduce(probe)
+            result["gloo_cuda"] = bool(probe.eq(2).all())
+        except RuntimeError as exc:   # the build's capability, recorded
+            result.update(gloo_cuda=False, error=str(exc)[:300])
+        if result["gloo_cuda"]:
+            mesh = make_mesh(2)
+            graphs = rocksalt_graphs(2 * GLOO_CELLS)
+            weights = init_parameters(ALIGNNAtomWise(ALIGNNAtomWiseConfig(
+                **TRAIN_CFG)), torch.Generator().manual_seed(0)).state_dict()
+
+            def run(device, steps):
+                loader = BucketedLoader(
+                    GraphDataset(graphs, [str(i) for i in range(len(graphs))]),
+                    GLOO_CELLS, spec=worst_case_spec(graphs, GLOO_CELLS),
+                    num_shards=2, shard_index=rank, prefetch=0,
+                    device=device)
+                model = ALIGNNAtomWise(ALIGNNAtomWiseConfig(**TRAIN_CFG))
+                model.load_state_dict(weights)
+                step = make_dp_train_step(model, mesh, cuda_graph=False)
+                state, losses, first = None, [], None
+                t = time.perf_counter()
+                for epoch in range(steps):
+                    loader.set_epoch(epoch)
+                    for batch in loader:
+                        state = state or create_train_state(
+                            model, batch, build_optimizer("adamw", 1e-3,
+                                                          1e-5))
+                        state, lo = step(state, batch)
+                        losses.append({k: float(v) for k, v in lo.items()})
+                        if first is None:
+                            first = ({k: float(v) for k, v in lo.items()},
+                                     {k: p.grad.detach().cpu().clone()
+                                      for k, p in model.named_parameters()})
+                digest = hashlib.sha256(b"".join(
+                    v.detach().cpu().numpy().tobytes()
+                    for v in model.state_dict().values())).hexdigest()
+                return losses, first, digest, time.perf_counter() - t
+
+            losses, card_first, digest, seconds = run("cuda", GLOO_STEPS)
+            _l, cpu_first, _d, cpu_s = run("cpu", 1)
+            fails: list = []
+            result.update(losses=losses, params_sha256=digest,
+                          card_seconds=seconds, cpu_seconds=cpu_s,
+                          card_vs_cpu_first_step=step_diff(
+                              card_first, cpu_first, "gloo card vs CPU",
+                              fails),
+                          failures=fails)
+    finally:
+        dist.destroy_process_group()
+    write_json(os.path.join(out, f"rank{rank}.json"), result)
+    return 0
+
+
+def gloo_start() -> tuple:
+    """Start the two gloo ranks sharing cuda:0 (:func:`gloo_rank_main`,
+    each a process of this script); :func:`gloo_phase` waits for them."""
+    import shutil
+
+    out = os.path.join(DP_DIR, "gloo")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--gloo-rank", str(r),
+         str(port), out], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in (0, 1)]
+    return procs, out, time.perf_counter()
+
+
+def gloo_phase(started: tuple, failures: list) -> dict:
+    """The two gloo ranks of :func:`gloo_start`, bounded by a hard
+    timeout: their parameters bit for bit, their losses equal, each first
+    step against the CPU port's two-rank step at the card-vs-CPU
+    first-step limits."""
+    procs, out, t0 = started
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=240)[0].decode(
+                errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode != 0 for p in procs):
+        failures.append("gloo: a rank failed: " + " | ".join(
+            log[-1500:] for log in logs))
+        return {"seconds": time.perf_counter() - t0}
+    r0, r1 = (read_json(os.path.join(out, f"rank{r}.json")) for r in (0, 1))
+    row = {"gloo_cuda": r0["gloo_cuda"], "seconds": time.perf_counter() - t0}
+    if not r0["gloo_cuda"]:
+        row["error"] = r0.get("error")
+        return row
+    row.update(steps=len(r0["losses"]), losses=r0["losses"],
+               params_bitwise=r0["params_sha256"] == r1["params_sha256"],
+               losses_equal=r0["losses"] == r1["losses"],
+               card_seconds=[r0["card_seconds"], r1["card_seconds"]],
+               cpu_seconds=[r0["cpu_seconds"], r1["cpu_seconds"]],
+               card_vs_cpu_first_step=[r0["card_vs_cpu_first_step"],
+                                       r1["card_vs_cpu_first_step"]])
+    failures.extend(r0["failures"] + r1["failures"])
+    if not (row["params_bitwise"] and row["losses_equal"]) or \
+            row["steps"] != GLOO_STEPS:
+        failures.append(f"gloo: ranks apart or {row['steps']} steps: {row}")
+    return row
+
+
+def http(url: str, payload=None) -> tuple:
+    """(code, JSON body) of a GET, or of a POST of `payload`."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=None if payload is None else json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def serve_phase(failures: list) -> tuple:
+    """``cli.serve`` with docs/mlearn_r4/Si and ``--ff`` on an ephemeral
+    localhost port: /health; /predict on si8, si64 and a batch of the two
+    and si512; /ff on si64; a malformed request.  Warm ms a request
+    (median of 5 after 2 warm-ups, host clock, default mode), /predict
+    within 1e-5 of ``zoo.predict_structures``, then one more /ff under
+    deterministic algorithms bit for bit ``Calculator.calculate``; graphs
+    captured, and K1/K2 launches a request from one profiled request (a
+    replay moves no counter).  Returns (row, {request: launches})."""
+    import threading
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from alignn_tpu_torch.cli.serve import serve
+    from alignn_tpu_torch.ff.calculator import Calculator
+    from alignn_tpu_torch.zoo import predict_structures
+
+    t0 = time.perf_counter()
+    cfg = si_config()
+    kw = dict(cutoff=float(cfg.get("cutoff", 8.0)),
+              max_neighbors=int(cfg.get("max_neighbors", 12)))
+    cells = dict((name, atoms) for name, atoms in si_cells())
+    requests = {
+        "predict_si8": ("/predict", {"atoms": cells["diamond8"].to_dict()}),
+        "predict_si64": ("/predict",
+                         {"atoms": cells["si64_rattled"].to_dict()}),
+        "predict_batch": ("/predict", {"atoms_list": [
+            cells[n].to_dict() for n in ("diamond8", "si64_rattled",
+                                         "si512_rattled")]}),
+        "ff_si64": ("/ff", {"atoms": cells["si64_rattled"].to_dict()})}
+    reset_launches()
+    server, service = serve(MODEL_DIR, port=0, ff=True, **kw)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    row: dict = {"model": "docs/mlearn_r4/Si", **kw}
+    launches: dict = {}
+    try:
+        code, health = http(url + "/health")
+        row["health"] = [code, health["ff"]]
+        row["malformed"] = http(url + "/predict", {"bogus": 1})[0]
+        if row["health"] != [200, True] or row["malformed"] != 400:
+            failures.append(f"serve: /health {row['health']}, malformed "
+                            f"request {row['malformed']}")
+        answers, ms = {}, {}
+        for name, (path, payload) in requests.items():
+            times = []
+            for _ in range(7):
+                t = time.perf_counter()
+                code, answers[name] = http(url + path, payload)
+                times.append((time.perf_counter() - t) * 1e3)
+                if code != 200:
+                    failures.append(f"serve {name}: {code} {answers[name]}")
+                    break
+            ms[name] = float(np.median(times[2:]))
+        # bit for bit needs index_add's fixed order on both sides
+        with deterministic():
+            ff = http(url + "/ff", requests["ff_si64"][1])[1]
+            ref_ff = Calculator(path=MODEL_DIR).calculate(
+                cells["si64_rattled"])
+        ff_bitwise = ff.get("energy") == ref_ff["energy"] and \
+            np.array_equal(np.asarray(ff.get("forces")), ref_ff["forces"]) \
+            and np.array_equal(np.asarray(ff.get("stress")),
+                               ref_ff["stress"])
+        gaps = {}
+        for name in ("predict_si8", "predict_si64", "predict_batch"):
+            structs = [cells[n] for n in {
+                "predict_si8": ["diamond8"],
+                "predict_si64": ["si64_rattled"],
+                "predict_batch": ["diamond8", "si64_rattled",
+                                  "si512_rattled"]}[name]]
+            ref = predict_structures(service.model, structs, **kw)
+            got = np.asarray(answers[name].get("predictions"))
+            gaps[name] = float(np.abs(got - ref).max()) \
+                if got.shape == ref.shape else float("inf")
+        if not ff_bitwise or not max(gaps.values()) <= 1e-5:
+            failures.append(f"serve: /ff bitwise {ff_bitwise}, /predict "
+                            f"gaps {gaps}")
+        # one request of each kind in this thread, profiled
+        for name, (path, payload) in requests.items():
+            call = (lambda p=payload: service.ff(p["atoms"])) \
+                if path == "/ff" else \
+                (lambda p=payload: service.predict(
+                    p.get("atoms_list") or [p["atoms"]]))
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            launches[name] = kernel_launches_in(prof)
+        counted = read_launches()
+        row.update(warm_ms_per_request=ms, ff_bitwise=ff_bitwise,
+                   predict_max_abs_gap=gaps,
+                   signatures=len(service.forward.loops),
+                   graphs_captured=service.forward.captures,
+                   launches_per_request=launches,
+                   launches_counted_over_phase=counted)
+        if service.forward.captures < 1 or counted["K1"] <= 0 or \
+                counted["K2"] <= 0 or \
+                any(launches[n]["K1"] <= 0 for n in requests):
+            failures.append(f"serve: captures {service.forward.captures}, "
+                            f"launches {counted}, per request {launches}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    del service, server
+    torch.cuda.empty_cache()
+    row["seconds"] = time.perf_counter() - t0
+    return row, launches
+
+
+LEGACY_CELLS = 48
+
+
+def legacy_phase(failures: list) -> dict:
+    """``cli.legacy`` on the card: one epoch of the ALIGNN property model
+    at its defaults (4+4/256) on ``<cache>/dft_3d.json`` (48 rattled
+    rocksalt cells of ``rocksalt_cells``, batch 8, 32/8/8), trained into a
+    scratch directory: metrics.json, fullconfig.json and the checkpoints
+    beside the config, finite losses, K1/K2 launched (counted from 0 over
+    the run)."""
+    import shutil
+
+    from alignn_tpu_torch.cli import legacy
+    from alignn_tpu_torch.graph.build import rocksalt_cells
+
+    t0 = time.perf_counter()
+    d = os.path.join(DP_DIR, "legacy")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(os.path.join(d, "cache"))
+    records = [{"jid": f"rs-{i}", "atoms": atoms.to_dict(),
+                "formation_energy_peratom": float(target)}
+               for i, (atoms, target, _f) in
+               enumerate(rocksalt_cells(LEGACY_CELLS))]
+    write_json(os.path.join(d, "cache", "dft_3d.json"), records)
+    cfg = write_json(os.path.join(d, "config.json"), {
+        "dataset": "dft_3d", "target": "formation_energy_peratom",
+        "epochs": 1, "batch_size": 8, "n_train": 32, "n_val": 8,
+        "n_test": 8, "num_workers": 0, "model": {"name": "alignn"}})
+    previous = os.environ.get("ALIGNN_TPU_DATA_CACHE")
+    os.environ["ALIGNN_TPU_DATA_CACHE"] = os.path.join(d, "cache")
+    reset_launches()
+    try:
+        hist = legacy.main([cfg, "--checkpoint_dir",
+                            os.path.join(d, "scratch")])
+    finally:
+        if previous is None:
+            del os.environ["ALIGNN_TPU_DATA_CACHE"]
+        else:
+            os.environ["ALIGNN_TPU_DATA_CACHE"] = previous
+    launches = read_launches()
+    files = sorted(os.listdir(d))
+    metrics = read_json(os.path.join(d, "metrics.json"))
+    row = {"files": files, "epoch_s": metrics["epoch_s"],
+           "step_losses": metrics["step_losses"],
+           "test_mae": metrics.get("test_mae"), "launches": launches,
+           "seconds": time.perf_counter() - t0}
+    need = {"metrics.json", "fullconfig.json", "best_model.mpk",
+            "last_model.mpk"}
+    losses = [v for ep in hist["step_losses"] for v in ep]
+    if not need <= set(files) or not losses or \
+            not all(np.isfinite(losses)) or launches["K1"] <= 0 or \
+            launches["K2"] <= 0:
+        failures.append(f"legacy: {row}")
+    return row
+
+
+def dp_phases(failures: list) -> tuple:
+    """The phases of data parallelism, serving and the legacy CLI, each
+    with its seconds.  Returns (rows, launches a DP step, launches a serve
+    request)."""
+    rows = {}
+    rows["dp_train"], dp_launches = dp_train_phase(failures)
+    # the gloo ranks start up and run beside dp_property, which times
+    # nothing that this summary compares
+    gloo = gloo_start()
+    try:
+        with nccl_world_of_one():
+            rows["dp_property"] = dp_property_phase(failures)
+    finally:   # waits for the ranks, or kills them at the timeout
+        rows["gloo_two_ranks"] = gloo_phase(gloo, failures)
+    rows["serve"], serve_launches = serve_phase(failures)
+    rows["legacy"] = legacy_phase(failures)
+    return rows, dp_launches, serve_launches
+
+
+def order_probe() -> int:
+    """``--bf16-order``: bench.py's E/F/S step (bf16, dense, 64 rocksalt
+    cells), forward and backward, eager, under deterministic algorithms,
+    three times in this process from the same weights; for each pair of
+    runs whether the aten operations came in the same order, where they
+    first part, and whether the forward's outputs and the gradients agree
+    bit for bit.  The reason :func:`dp_train_run` compares fresh
+    processes.  No ``{"ok"}`` line."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from alignn_tpu_torch import _build
+    from alignn_tpu_torch.nn.models import (ALIGNNAtomWise,
+                                            ALIGNNAtomWiseConfig,
+                                            atomwise_forward,
+                                            init_parameters)
+
+    class Order(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    print(smi_line(), flush=True)
+    _build.build_all()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    weights = init_parameters(ALIGNNAtomWise(ALIGNNAtomWiseConfig(
+        **TRAIN_CFG)), torch.Generator().manual_seed(0)).state_dict()
+    batch = train_batches(rocksalt_b64(), torch.device("cuda"))["dense"]
+    runs = []
+    with deterministic():
+        for _ in range(3):
+            model = ALIGNNAtomWise(ALIGNNAtomWiseConfig(**TRAIN_CFG),
+                                   dtype=torch.bfloat16).cuda()
+            model.load_state_dict(weights)
+            model.train()
+            order = Order()
+            with order:
+                res = atomwise_forward(model, batch, create_graph=True)
+                loss = res["out"].float().sum() + \
+                    res["grad"].float().pow(2).sum()
+                loss.backward()
+            runs.append((order.ops, res["out"].detach().clone(),
+                         res["grad"].detach().clone(),
+                         [p.grad.clone() for p in model.parameters()
+                          if p.grad is not None]))
+    for i, j in ((0, 1), (1, 2), (0, 2)):
+        a, b = runs[i], runs[j]
+        part = next((k for k, (x, y) in enumerate(zip(a[0], b[0]))
+                     if x != y), None)
+        emit({"phase": "bf16_order", "runs": [i, j], "ops": len(a[0]),
+              "order_parts_at": part,
+              "op_there": None if part is None else [a[0][part],
+                                                     b[0][part]],
+              "forward_bitwise": bool(torch.equal(a[1], b[1])
+                                      and torch.equal(a[2], b[2])),
+              "gradients_differing": sum(
+                  not torch.equal(x, y) for x, y in zip(a[3], b[3])),
+              "gradients": len(a[3])})
+    return 0
+
+
+def dp_probe() -> int:
+    """``--dp``: the kernels built, then the phases of :func:`dp_phases`
+    alone (the property run writes its own folder); no ``{"ok"}`` line."""
+    from alignn_tpu_torch import _build
+
+    print(smi_line(), flush=True)
+    _build.build_all()
+    failures: list = []
+    rows, dp_launches, serve_launches = dp_phases(failures)
+    for name, row in rows.items():
+        emit({"phase": name, **row})
+    emit({"launches_per_dp_step": dp_launches,
+          "launches_per_serve_request": serve_launches})
+    for msg in failures:
+        print(f"chip_smoke FAILED: {msg}", file=sys.stderr)
+    return 1 if failures else 0
+
+
 def main() -> int:
     import torch
 
@@ -4151,10 +4894,21 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script needs one GPU",
               file=sys.stderr)
         return 2
+    if "--gloo-rank" in args:   # a rank of the gloo phase's two
+        i = args.index("--gloo-rank")
+        return gloo_rank_main(int(args[i + 1]), int(args[i + 2]),
+                              args[i + 3])
+    if "--dp-train" in args:    # one side of the dp_train phase
+        i = args.index("--dp-train")
+        return dp_train_run(args[i + 1], args[i + 2])
     if "--segments" in args:
         return segments_probe()
     if "--pairs" in args:
         return pairs_probe("--steps" in args)
+    if "--dp" in args:
+        return dp_probe()
+    if "--bf16-order" in args:
+        return order_probe()
     from alignn_tpu_torch import _build
     from alignn_tpu_torch.ff.calculator import Calculator
     from alignn_tpu_torch.graph.batch import batch_graphs
@@ -4339,6 +5093,15 @@ def main() -> int:
     emit({"phase": "model_families", "part": "total",
           "seconds": time.perf_counter() - t})
 
+    # data parallelism (NCCL at world size 1, two gloo ranks), the
+    # server and the legacy CLI: counts from 0 over each run
+    t = time.perf_counter()
+    dp_rows, dp_launches, serve_launches = dp_phases(failures)
+    for name, row in dp_rows.items():
+        emit({"phase": name, **row})
+    emit({"phase": "dp_serve_legacy", "part": "total",
+          "seconds": time.perf_counter() - t})
+
     line = []
     for key, name, source, replaces in KERNELS:
         r = kernels.get(key)
@@ -4380,6 +5143,12 @@ def main() -> int:
             "launches_per_precision_step": {
                 run: counts[key]
                 for run, counts in precision_launches.items()},
+            # counted from the profiler: the DP step's replay (bf16) and
+            # one warm request of each kind
+            "launches_per_dp_step": {
+                layout: counts[key] for layout, counts in dp_launches.items()},
+            "launches_per_serve_request": {
+                req: counts[key] for req, counts in serve_launches.items()},
             # counted from the profiler: a replay moves no counter
             "launches_per_captured_step": {
                 **{run: cli_rows[run]["replayed_step"][

@@ -272,8 +272,11 @@ def test_loader_refuses_shards_and_needs_a_device():
     from alignn_tpu_torch.data.dataset import GraphDataset
     from alignn_tpu_torch.data.loader import BucketedLoader
 
-    with pytest.raises(NotImplementedError, match="DDP"):
-        BucketedLoader(GraphDataset([], []), 4, num_shards=2, device=CPU)
+    # shards are ported (tests/test_torch_port_dp.py); a shard index
+    # outside them is refused
+    with pytest.raises(ValueError, match="shard_index 2"):
+        BucketedLoader(GraphDataset([], []), 4, num_shards=2,
+                       shard_index=2, device=CPU)
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -515,6 +515,10 @@ def test_cli_train_and_predict(tmp_path, capsys):
     np.testing.assert_allclose(
         [r["prediction"] for r in rows],
         [test_rows[os.path.basename(r["file"])] for r in rows], atol=1e-5)
-    with pytest.raises(NotImplementedError, match='"Multi-GPU"'):
-        train.main(["--root_dir", root, "--config_name", config,
+    # data parallelism is ported (tests/test_torch_port_dp.py); edge
+    # partitioning over a graph axis is not
+    graph_axis = write_config(tmp_path / "g.json", epochs=1,
+                              mesh_shape={"data": 1, "graph": 2})
+    with pytest.raises(NotImplementedError, match='"Multi-GPU, part 2"'):
+        train.main(["--root_dir", root, "--config_name", graph_axis,
                     "--devices", "2", "--device", "cpu"])
