@@ -21,8 +21,11 @@ otherwise it spawns N ranks that meet at a free localhost port, NCCL on
 the card and gloo with ``--device cpu``.  Each rank's train loader takes
 ``num_shards=N`` and its own shard; rank 0 writes the artifacts and its
 summary is returned (the other ranks write nothing to the output
-directory).  On the card N may not exceed the visible GPUs: NCCL
-refuses two ranks on one device.  ``--profile`` with ``--devices N``
+directory).  With the config's ``mesh_shape {"data": D, "graph": G}``
+(N = D G) rank ``d * G + g`` takes data shard d, which its row's G ranks
+edge-partition (sparse ring or dense halo, ``parallel/dp_gp.py``,
+``parallel/dense_gp.py``).  On the card N may not exceed the visible
+GPUs: NCCL refuses two ranks on one device.  ``--profile`` with ``--devices N``
 profiles shard 0's single-device step in this process, as JAX does.
 """
 
@@ -44,8 +47,8 @@ from alignn_tpu_torch import resolve_device
 from alignn_tpu_torch.config import TrainingConfig
 from alignn_tpu_torch.data.dataset import load_folder_records
 from alignn_tpu_torch.data.loader import get_train_val_loaders
-from alignn_tpu_torch.parallel.mesh import (GRAPH_AXIS_REFUSAL,
-                                            initialize_distributed)
+from alignn_tpu_torch.parallel.dp import check_graph_axis_model
+from alignn_tpu_torch.parallel.mesh import initialize_distributed
 from alignn_tpu_torch.train.trainer import train_model
 
 
@@ -82,8 +85,7 @@ def train_for_folder(
     rank = 0
     if devices > 1 and not profile:
         if int((config.mesh_shape or {}).get("graph", 1)) > 1:
-            raise NotImplementedError(f"mesh_shape {config.mesh_shape}: "
-                                      f"{GRAPH_AXIS_REFUSAL}")
+            check_graph_axis_model(config)    # before any rank spawns
         if not dist.is_initialized():
             if device.type == "cuda" and \
                     devices > torch.cuda.device_count():
@@ -139,6 +141,8 @@ def train_for_folder(
     # graph cache where there is one, and write their copies of the split
     # files (ids, mad, baseline) to a directory of their own
     sharded = devices > 1 and not profile
+    # a (data, graph) mesh: the ranks of a data row share its shard
+    g_size = int((config.mesh_shape or {}).get("graph", 1))
     split_dir = config.output_dir
     if sharded and rank > 0:
         dist.barrier()
@@ -178,8 +182,8 @@ def train_for_folder(
         per_species_energy_baseline=config.per_species_energy_baseline,
         lg_cutoff=config.lg_cutoff,
         device=device,
-        num_shards=devices,
-        shard_index=rank,
+        num_shards=max(devices // g_size, 1),
+        shard_index=rank // g_size,
     )
     if sharded and rank == 0:
         dist.barrier()

@@ -463,11 +463,26 @@ def add_atomwise_heads(model: nn.Module, cfg, fc_out=None,
 
 def atomwise_heads(model: nn.Module, batch: GraphBatch,
                    x: torch.Tensor, bondlength: torch.Tensor,
-                   classify=torch.sigmoid) -> Dict[str, torch.Tensor]:
+                   classify=torch.sigmoid, edge_group=None,
+                   node_group=None) -> Dict[str, torch.Tensor]:
     """Readout, output heads, penalty and the energy `en_out`; a
-    classifier's output goes through `classify`."""
+    classifier's output goes through `classify`.
+
+    Under graph parallelism (JAX's ``edge_axis``/``node_axis``) the
+    bond lengths are this rank's shard and `edge_group` sums the penalty
+    over the ranks; with `node_group` the node table `x` is a shard too,
+    the per-graph sums of the readout are summed over the ranks, and
+    ``atomwise_pred`` stays a shard."""
     cfg = model.cfg
-    h = graph_readout_mean(x, batch.node_graph, batch.n_nodes)
+    if node_group is not None:
+        from alignn_tpu_torch.parallel.mesh import all_reduce_sum
+
+        sums = all_reduce_sum(segment_sum(x, batch.node_graph,
+                                          batch.n_nodes.shape[0]),
+                              node_group)
+        h = sums / torch.clamp_min(batch.n_nodes, 1.0)[:, None]
+    else:
+        h = graph_readout_mean(x, batch.node_graph, batch.n_nodes)
     out = extra_features_head(model, h, batch) if cfg.extra_features \
         else model.fc(h)
     result: Dict[str, torch.Tensor] = {}
@@ -490,7 +505,12 @@ def atomwise_heads(model: nn.Module, batch: GraphBatch,
             torch.zeros_like(bondlength)) * batch.edge_mask
         # the reference adds the batch-total penalty to every graph's
         # energy -- kept as is
-        en_out = en_out + penalties.sum()
+        total = penalties.sum()
+        if edge_group is not None:
+            from alignn_tpu_torch.parallel.mesh import all_reduce_sum
+
+            total = all_reduce_sum(total, edge_group)
+        en_out = en_out + total
 
     out = _apply_link(out, cfg.link)
     if cfg.classification:
@@ -545,6 +565,15 @@ def atomwise_forward(model: ALIGNNAtomWise, batch: GraphBatch,
         res = model(batch, r)
         energy = torch.sum(res["en_out"] * batch.graph_mask)
         (g_r,) = torch.autograd.grad(energy, r, create_graph=create_graph)
+    res["grad"], res["stresses"] = forces_and_stress(cfg, batch, g_r)
+    return res
+
+
+def forces_and_stress(cfg: ALIGNNAtomWiseConfig, batch: GraphBatch,
+                      g_r: torch.Tensor):
+    """(forces [N, 3], stress [G, 3, 3]) from g_r = dE/dr: the linear
+    force assembly and virial of :func:`atomwise_forward`."""
+    num_graphs = batch.graph_mask.shape[0]
     pair_forces = cfg.grad_multiplier * g_r
     if cfg.force_mult_natoms:
         pair_forces = pair_forces * batch.n_nodes.sum()
@@ -562,18 +591,17 @@ def atomwise_forward(model: ALIGNNAtomWise, batch: GraphBatch,
         forces = segment_sum(pair_forces, batch.dst, num_nodes)
         if cfg.add_reverse_forces:
             forces = forces - segment_sum(pair_forces, batch.src, num_nodes)
-    res["grad"] = forces
 
     if cfg.stresswise_weight != 0:
         outer = torch.einsum("ei,ej->eij", batch.r, pair_forces)
         per_graph = segment_sum(outer, batch.edge_graph, num_graphs)
         div = 1.0 if cfg.batch_stress else 2.0
-        res["stresses"] = (-cfg.stress_multiplier * EV_A3_TO_GPA * per_graph
-                           / (div * torch.clamp_min(batch.volume, 1e-12)
-                              [:, None, None]))
+        stress = (-cfg.stress_multiplier * EV_A3_TO_GPA * per_graph
+                  / (div * torch.clamp_min(batch.volume, 1e-12)
+                     [:, None, None]))
     else:
-        res["stresses"] = batch.r.new_zeros((num_graphs, 3, 3))
-    return res
+        stress = batch.r.new_zeros((num_graphs, 3, 3))
+    return forces, stress
 
 
 def _pos_deriv_forward(model: ALIGNNAtomWise, batch: GraphBatch,

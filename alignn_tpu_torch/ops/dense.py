@@ -31,8 +31,12 @@ numerator, the denominator and every gradient.
   ``_xla_pair_bwd2`` (``:485-530``).  On the default path for the same
   reason as K5a.  A third derivative raises: nothing needs one.
 
-K3's second order is autograd through its plain backward, as in JAX,
-whose ``gated_aggregate_bwd`` is opt-in and has no kernel.
+K3's second order is autograd through its plain backward, as in JAX.
+With ``ALIGNN_TPU_GATED_BWD_OP`` set (JAX's opt-in switch, read at each
+backward) K3's backward is instead :func:`gated_aggregate_bwd`, whose
+own VJP is the hand-derived :func:`gated_aggregate_bwd2_plain` (JAX's
+``_xla_gated_bwd``/``_xla_gated_bwd2``): both are torch ops, as JAX's are
+XLA ops with no Pallas kernel.
 
 All four kernels are in ``csrc/dense.cu``.  K3 runs one thread per
 (node, 16-byte feature lane), which walks the node's D rows in order.
@@ -56,6 +60,7 @@ their launches in ``.launches``.
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
@@ -388,12 +393,15 @@ class _DenseGatedAggregate(torch.autograd.Function):
                       _unit_stride(bh), D)
         ctx.D = D
         ctx.save_for_backward(m, bh, h)
+        ctx.save_for_forward(m, bh)
         return h
 
     @staticmethod
     def backward(ctx, g):
         m, bh, h = ctx.saved_tensors
         D, f = ctx.D, m.shape[-1]
+        if gated_bwd_op_enabled():
+            return (*gated_aggregate_bwd(m, bh, g, D), None)
         sig = torch.sigmoid(m.float()).reshape(-1, D, f)
         den = (sig.sum(dim=1) + EPS)[:, None, :]       # [M, 1, F]
         g32 = g.float()[:, None, :]
@@ -403,6 +411,106 @@ class _DenseGatedAggregate(torch.autograd.Function):
         dbh = (sig * ginv).reshape(-1, f).to(bh.dtype)
         dm = (sig * (1.0 - sig) * (bh3 * ginv + gh)).reshape(-1, f)
         return dm.to(m.dtype), dbh, None
+
+    @staticmethod
+    def jvp(ctx, tm, tbh, _D):
+        m, bh = ctx.saved_tensors
+        D, f = ctx.D, m.shape[-1]
+        return _block_jvp(m.reshape(-1, D, f), bh.reshape(-1, D, f),
+                          None if tm is None else tm.reshape(-1, D, f),
+                          None if tbh is None else tbh.reshape(-1, D, f),
+                          1).to(bh.dtype)
+
+
+def gated_bwd_op_enabled() -> bool:
+    """JAX's ``ALIGNN_TPU_GATED_BWD_OP``: K3's backward through the
+    first-class :func:`gated_aggregate_bwd` (opt-in; JAX measured it 0.9 %
+    slower on its TPU step)."""
+    return os.environ.get("ALIGNN_TPU_GATED_BWD_OP", "") not in ("", "0")
+
+
+def _expand(x: torch.Tensor, D: int) -> torch.Tensor:
+    """[M, F] -> [M*D, F] row broadcast (D-block layout)."""
+    return x[:, None, :].expand(x.shape[0], D, x.shape[1]).reshape(
+        -1, x.shape[1])
+
+
+def gated_aggregate_bwd_plain(m: torch.Tensor, bh: torch.Tensor,
+                              g: torch.Tensor, D: int):
+    """(dm, dbh), the VJP of K3 at (m, bh) with cotangent g (JAX
+    ``_xla_gated_bwd``): den and h recomputed in f32 from the primals, so
+    that they stay differentiable functions of them."""
+    f = m.shape[-1]
+    sig = torch.sigmoid(m.float())
+    bh32 = bh.float()
+    den = sig.reshape(-1, D, f).sum(dim=1) + EPS
+    h = (sig * bh32).reshape(-1, D, f).sum(dim=1) / den
+    g32 = g.float()
+    ginv_e = _expand(g32 / den, D)
+    gh_e = _expand(-g32 * h / den, D)
+    dbh = (sig * ginv_e).to(bh.dtype)
+    dm = (sig * (1.0 - sig) * (bh32 * ginv_e + gh_e)).to(m.dtype)
+    return dm, dbh
+
+
+def gated_aggregate_bwd2_plain(m: torch.Tensor, bh: torch.Tensor,
+                               g: torch.Tensor, u: torch.Tensor,
+                               v: torch.Tensor, D: int):
+    """(c_m, c_bh, c_g), the VJP of (m, bh, g) -> (dm, dbh) with
+    cotangents (u, v) (JAX ``_xla_gated_bwd2``).  With sig' = sig(1-sig),
+    sig'' = sig'(1-2 sig), den = sum_s sig + eps, h = num/den,
+    ginv = g/den, gh = -g h/den, k = -g/den^2 and the row sums
+    A = sum_s u sig', Bq = sum_s u sig' bh, C = sum_s v sig:
+
+      c_g    = (Bq - h A + C) / den
+      c_bh_s = u sig' ginv + sig k A
+      c_m_s  = u sig'' (bh ginv + gh)
+               + sig' [ k (Bq - 2 h A + bh A + C) + v ginv ]
+    """
+    f = m.shape[-1]
+    sig = torch.sigmoid(m.float())
+    sigp = sig * (1.0 - sig)
+    sigpp = sigp * (1.0 - 2.0 * sig)
+    bh32, u32, v32 = bh.float(), u.float(), v.float()
+
+    def rows(x):
+        return x.reshape(-1, D, f).sum(dim=1)
+
+    den = rows(sig) + EPS
+    h = rows(sig * bh32) / den
+    g32 = g.float()
+    ginv, gh, k = g32 / den, -g32 * h / den, -g32 / (den * den)
+    a, bq, cc = rows(u32 * sigp), rows(u32 * sigp * bh32), rows(v32 * sig)
+    c_g = ((bq - h * a + cc) / den).to(g.dtype)
+    ginv_e = _expand(ginv, D)
+    c_bh = (u32 * sigp * ginv_e + sig * _expand(k * a, D)).to(bh.dtype)
+    c_m = (u32 * sigpp * (bh32 * ginv_e + _expand(gh, D))
+           + sigp * (_expand(k, D) * (_expand(bq - 2.0 * h * a + cc, D)
+                                      + bh32 * _expand(a, D))
+                     + v32 * ginv_e)).to(m.dtype)
+    return c_m, c_bh, c_g
+
+
+class _GatedAggregateBwd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, m, bh, g, D):
+        ctx.D = D
+        ctx.save_for_backward(m, bh, g)
+        return gated_aggregate_bwd_plain(m, bh, g, D)
+
+    @staticmethod
+    def backward(ctx, u, v):
+        m, bh, g = ctx.saved_tensors
+        return (*gated_aggregate_bwd2_plain(m, bh, g, u, v, ctx.D), None)
+
+
+def gated_aggregate_bwd(m: torch.Tensor, bh: torch.Tensor, g: torch.Tensor,
+                        D: int):
+    """(dm, dbh) = VJP of :func:`dense_gated_aggregate` at (m, bh) with
+    cotangent g; its own VJP is the hand-derived
+    :func:`gated_aggregate_bwd2_plain` (differentiable once more through
+    autograd)."""
+    return _GatedAggregateBwd.apply(m, bh, g, D)
 
 
 def dense_gated_aggregate(m: torch.Tensor, bh: torch.Tensor,
@@ -426,6 +534,7 @@ class _DensePairAggregate(torch.autograd.Function):
                       _unit_stride(bh), D)
         ctx.D = D
         ctx.save_for_backward(m2_res, bh)
+        ctx.save_for_forward(m2, bh)
         return h
 
     @staticmethod
@@ -433,6 +542,32 @@ class _DensePairAggregate(torch.autograd.Function):
         m2_res, bh = ctx.saved_tensors
         dm2, dbh = pair_aggregate_bwd(m2_res, bh, g, ctx.D)
         return dm2, None, dbh, None
+
+    @staticmethod
+    def jvp(ctx, tm2, _tres, tbh, _D):
+        m2, bh = ctx.saved_tensors
+        D, f = ctx.D, m2.shape[-1]
+        n = bh.shape[0] // D
+        return _block_jvp(
+            m2.reshape(n, D, D, f), bh.reshape(n, 1, D, f),
+            None if tm2 is None else tm2.reshape(n, D, D, f),
+            None if tbh is None else tbh.reshape(n, 1, D, f),
+            2).reshape(n * D, f).to(bh.dtype)
+
+
+def _block_jvp(m, bh, tm, tbh, dim: int) -> torch.Tensor:
+    """Tangent of sum sig(m) bh / (sum sig(m) + eps) over `dim`:
+    (sum(sig' tm bh + sig tbh) - h sum(sig' tm)) / den, in f32 (the
+    forward-mode rule of K3 and K4, in differentiable torch ops)."""
+    sig = torch.sigmoid(m.float())
+    bh = bh.float()
+    dsig = sig * (1.0 - sig) * tm.float() if tm is not None else \
+        torch.zeros_like(sig)
+    dbh = tbh.float() if tbh is not None else torch.zeros_like(bh)
+    den = sig.sum(dim=dim) + EPS
+    h = (sig * bh).sum(dim=dim) / den
+    return ((dsig * bh + sig * dbh).sum(dim=dim)
+            - h * dsig.sum(dim=dim)) / den
 
 
 def dense_pair_aggregate(m2: torch.Tensor, bh: torch.Tensor,

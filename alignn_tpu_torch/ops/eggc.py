@@ -26,6 +26,14 @@ over dst-sorted edges, so a segment is the contiguous row range
 Dispatch rule of every wrapper: a tensor on the CPU takes the plain
 PyTorch version (``*_plain``); a CUDA tensor launches the kernel or
 raises.  The kernel wrappers count their launches in ``.launches``.
+
+Every Function also has a forward-mode rule (``jvp``, for
+``torch.autograd.forward_ad``: the forward-over-reverse step of
+``train/fjvp.py``).  The linear ones apply themselves to the tangent (a
+gather's tangent is the same gather, a segment sum's the same sum), so
+the tangent runs the same kernels; K1's tangent is its closed form over
+one K2 call.  Each rule is built of differentiable ops and Functions, so
+a reverse pass can sweep the tangent.
 """
 
 from __future__ import annotations
@@ -287,6 +295,10 @@ class _SortedSegmentSum(torch.autograd.Function):
     def backward(ctx, g):
         return sorted_gather(g, ctx.seg, ctx.window), None, None
 
+    @staticmethod
+    def jvp(ctx, t, _seg, _window):
+        return sorted_segment_sum(t, ctx.seg, ctx.window)
+
 
 class _SortedGather(torch.autograd.Function):
     @staticmethod
@@ -297,6 +309,10 @@ class _SortedGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return sorted_segment_sum(g, ctx.seg, ctx.window), None, None
+
+    @staticmethod
+    def jvp(ctx, t, _seg, _window):
+        return sorted_gather(t, ctx.seg, ctx.window)
 
 
 def sorted_segment_sum(x: torch.Tensor, seg: Segments,
@@ -323,6 +339,10 @@ class _PermuteRows(torch.autograd.Function):
     def backward(ctx, g):
         return permute_rows(g, ctx.inv_perm, ctx.perm), None, None
 
+    @staticmethod
+    def jvp(ctx, t, _perm, _inv_perm):
+        return permute_rows(t, ctx.perm, ctx.inv_perm)
+
 
 def permute_rows(x: torch.Tensor, perm: torch.Tensor,
                  inv_perm: torch.Tensor) -> torch.Tensor:
@@ -335,7 +355,7 @@ class _GatherNodes(torch.autograd.Function):
     def forward(ctx, x, idx, perm, inv_perm, seg_sorted, window,
                 window_sorted):
         ctx.perm, ctx.inv_perm, ctx.seg_sorted = perm, inv_perm, seg_sorted
-        ctx.window_sorted = window_sorted
+        ctx.idx, ctx.window, ctx.window_sorted = idx, window, window_sorted
         return windowed_gather(x, idx, window)
 
     @staticmethod
@@ -344,6 +364,11 @@ class _GatherNodes(torch.autograd.Function):
         return (sorted_segment_sum(g_sorted, ctx.seg_sorted,
                                    ctx.window_sorted),
                 None, None, None, None, None, None)
+
+    @staticmethod
+    def jvp(ctx, t, *_):
+        return gather_nodes(t, ctx.idx, ctx.perm, ctx.inv_perm,
+                            ctx.seg_sorted, ctx.window, ctx.window_sorted)
 
 
 def gather_nodes(x: torch.Tensor, idx: torch.Tensor, perm: torch.Tensor,
@@ -369,6 +394,7 @@ class _GatedAggregate(torch.autograd.Function):
                       _unit_stride(m), _unit_stride(bh), seg)
         ctx.seg, ctx.window = seg, window
         ctx.save_for_backward(m, bh, h)
+        ctx.save_for_forward(m, bh)
         return h
 
     @staticmethod
@@ -388,6 +414,23 @@ class _GatedAggregate(torch.autograd.Function):
         dsigma = bh * ginv_e + gh_e
         dm = (sigma * (1 - sigma) * dsigma).to(m.dtype)
         return dm, dbh, None, None
+
+    @staticmethod
+    def jvp(ctx, tm, tbh, _seg, _window):
+        """dh = (S(sig' tm bh + sig tbh) - h S(sig' tm)) / den, the four
+        segment sums in one K2 call, in (at least) f32."""
+        m, bh = ctx.saved_tensors
+        acc, f = _acc_dtype(m.dtype), m.shape[-1]
+        sig = torch.sigmoid(m.to(acc))
+        bh32 = bh.to(acc)
+        dsig = sig * (1 - sig) * tm.to(acc) if tm is not None else \
+            torch.zeros_like(sig)
+        dbh = tbh.to(acc) if tbh is not None else torch.zeros_like(sig)
+        num, den, dnum, dden = torch.split(sorted_segment_sum(
+            torch.cat([sig * bh32, sig, dsig * bh32 + sig * dbh, dsig],
+                      dim=-1), ctx.seg, ctx.window), f, dim=-1)
+        den = den + EPS
+        return ((dnum - num / den * dden) / den).to(m.dtype)
 
 
 def gated_aggregate(m: torch.Tensor, bh: torch.Tensor, seg: Segments,

@@ -17,15 +17,18 @@ The collective is written out rather than left to
 reducer hooks sit badly with the force step's double backward and with
 the step's CUDA graph.
 
-Only the 1-D data mesh is ported: a ``"graph"`` axis raises.
+With ``mesh_shape {"data": D, "graph": G}`` (G > 1) the trainer takes the
+2-D step instead: each data row edge-partitions its micro-batch over G
+ranks, the ring of :mod:`alignn_tpu_torch.parallel.dp_gp` for a sparse
+loader and the dense halo of :mod:`alignn_tpu_torch.parallel.dense_gp`
+for a dense one.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Optional
 
-from alignn_tpu_torch.parallel.mesh import (GRAPH_AXIS_REFUSAL, Mesh,
-                                            make_mesh)
+from alignn_tpu_torch.parallel.mesh import Mesh, make_mesh
 from alignn_tpu_torch.train.state import make_train_step
 
 
@@ -54,9 +57,11 @@ def train_model_dp(config, train_loader, val_loader, test_loader=None,
     from alignn_tpu_torch.train import trainer
 
     mesh_shape = getattr(config, "mesh_shape", None) or {}
-    if int(mesh_shape.get("graph", 1)) > 1:
-        raise NotImplementedError(f"mesh_shape {mesh_shape}: "
-                                  f"{GRAPH_AXIS_REFUSAL}")
+    g_size = int(mesh_shape.get("graph", 1))
+    if g_size > 1:
+        return _train_model_dp_gp(config, train_loader, val_loader,
+                                  test_loader, mesh_shape, n_devices,
+                                  restart_params_path, restart_state_path)
     mesh = make_mesh(n_devices if n_devices is not None else
                      mesh_shape.get("data"))
     if train_loader.num_shards != mesh.size:
@@ -76,3 +81,61 @@ def train_model_dp(config, train_loader, val_loader, test_loader=None,
         restart_params_path=restart_params_path,
         restart_state_path=restart_state_path,
         train_step_factory=step_factory, model_axis_name=mesh.group)
+
+
+def _train_model_dp_gp(config, train_loader, val_loader, test_loader,
+                       mesh_shape, n_devices, restart_params_path,
+                       restart_state_path):
+    """The trainer over a (data, graph) mesh: rank ``d * G + g`` trains
+    data shard d, edge-partitioned over its row's G ranks; only rank 0
+    writes."""
+    from alignn_tpu_torch.parallel.dense_gp import \
+        make_dp_dense_gp_train_step
+    from alignn_tpu_torch.parallel.dp_gp import make_dp_gp_train_step
+    from alignn_tpu_torch.train import trainer
+
+    check_graph_axis_model(config)
+    g_size = int(mesh_shape["graph"])
+    if "data" in mesh_shape:
+        d_size = int(mesh_shape["data"])
+    else:
+        d_size = (n_devices or _world()) // g_size
+    mesh = make_mesh(d_size * g_size, axis_names=("data", "graph"),
+                     shape=(d_size, g_size))
+    if train_loader.num_shards != d_size:
+        raise ValueError(
+            f"train loader num_shards={train_loader.num_shards} != data "
+            f"mesh size {d_size}")
+    if train_loader.shard_index != mesh.axis("data").index:
+        raise ValueError(f"rank {mesh.rank} holds the train loader of "
+                         f"shard {train_loader.shard_index}")
+
+    def step_factory(model, criterion, classification):
+        if getattr(train_loader.spec, "dense_D", 0):
+            return make_dp_dense_gp_train_step(
+                model, mesh, classification=classification)
+        return make_dp_gp_train_step(model, mesh,
+                                     classification=classification)
+
+    return trainer.train_model(
+        config, train_loader, val_loader, test_loader,
+        restart_params_path=restart_params_path,
+        restart_state_path=restart_state_path,
+        train_step_factory=step_factory)
+
+
+def check_graph_axis_model(config) -> None:
+    """Raise unless ``config.model`` can be edge-partitioned over a graph
+    axis: only the atomwise model has a graph-parallel step."""
+    from alignn_tpu_torch.nn.models import ALIGNNAtomWiseConfig
+
+    if not isinstance(config.model, ALIGNNAtomWiseConfig):
+        raise ValueError(
+            "graph-axis parallelism requires an atomwise model "
+            "(the property model has no edge-partitioned step)")
+
+
+def _world() -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size()

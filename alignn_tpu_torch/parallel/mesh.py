@@ -1,9 +1,12 @@
-"""The process group and its 1-D data mesh (counterpart of
-``alignn_tpu/parallel/mesh.py``).
+"""The process group, its mesh and the differentiable collectives on a
+mesh axis (counterpart of ``alignn_tpu/parallel/mesh.py`` and of the
+``lax.psum``/``ppermute``/``all_gather`` calls inside JAX's ``shard_map``).
 
 JAX runs one program per host over a mesh of that host's devices.  The
-port runs one process, a rank, per GPU (PyTorch's idiom): the "mesh" is the
-group of ranks, and each rank computes on its own device.
+port runs one process, a rank, per device (PyTorch's idiom): the "mesh" is
+the group of ranks laid out as JAX lays out its devices, rank
+``d * G + g`` at (data ``d``, graph ``g``) of a ``("data", "graph")``
+mesh of shape (D, G), and each rank computes on its own device.
 
 - :func:`initialize_distributed` is the rendezvous, ``init_process_group``
   with NCCL for CUDA devices and gloo for the CPU.  With no address it reads
@@ -11,29 +14,45 @@ group of ranks, and each rank computes on its own device.
   ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``).  On the card it selects the
   rank's device (``cuda:<local rank>``) before anything touches the card.
 - :func:`make_mesh` describes the initialised group: world size, rank, the
-  rank's device, the backend and the group.  Only the 1-D data mesh is
-  ported; a 2-D (data x graph) shape raises.
+  rank's device, the backend, and for each axis the subgroup of this
+  rank's neighbours along it (:class:`Axis`): on a (data, graph) mesh the
+  ranks of this rank's data row (the "graph" axis) and of its graph
+  column (the "data" axis).
 - :func:`all_reduce_sum` is a differentiable all-reduce: its backward
   all-reduces the incoming gradient, as the transpose of JAX's ``psum``
   inside ``shard_map`` does.  The cross-rank BatchNorm
   (:class:`~alignn_tpu_torch.nn.layers.MaskedBatchNorm`) reduces its sums
   through it.
+- :func:`ring_shift` moves each rank's tensor k places along an axis (JAX's
+  ``ppermute`` with the pairs ``j -> j + k``); its backward is the shift by
+  -k.  :func:`all_gather` stacks the axis' tensors in axis order; its
+  backward is the reduce-scatter of the cotangent.  Each backward calls the
+  same Functions, so a gradient of a gradient (the force loss) crosses the
+  ranks as well.
+
+The transport of a shift is the backend's point-to-point send and receive.
+gloo's moves host memory only, so with gloo a CUDA tensor is staged
+through a host copy on each side (:func:`shift_transport`); the compute
+stays on the card.  The all-reduce takes CUDA tensors under both backends,
+and :func:`all_gather` is an all-reduce of the tensor placed in its slot.
+:data:`COLLECTIVE_STATS` adds up the calls, bytes and host seconds of the
+collectives of this module.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
-from dataclasses import dataclass
-from typing import Any, Optional, Sequence
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from alignn_tpu_torch import resolve_device
-
-GRAPH_AXIS_REFUSAL = ('edge partitioning over a "graph" mesh axis is not '
-                      'ported (ROADMAP.md §1 "Multi-GPU, part 2")')
 
 # a rank that waits this long in a collective or the rendezvous raises
 # instead of hanging
@@ -43,20 +62,54 @@ COLLECTIVE_TIMEOUT = datetime.timedelta(minutes=10)
 _RANK_DEVICE: Optional[torch.device] = None
 
 
+# calls, bytes moved (sent, or summed) and host seconds of the collectives
+# below, for a caller that splits a step's time (chip_smoke.py)
+COLLECTIVE_STATS: Dict[str, float] = {"calls": 0, "bytes": 0, "seconds": 0.0}
+
+
+def reset_collective_stats() -> None:
+    for k in COLLECTIVE_STATS:
+        COLLECTIVE_STATS[k] = 0
+
+
+@dataclass(frozen=True)
+class Axis:
+    """One mesh axis as this rank sees it: the subgroup of the ranks that
+    differ from it only along the axis, their global ranks in axis order,
+    and this rank's place among them."""
+
+    name: str
+    group: Any
+    ranks: Tuple[int, ...]
+    index: int
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+
 @dataclass(frozen=True)
 class Mesh:
-    """The data-parallel group as this rank sees it."""
+    """The group as this rank sees it, laid out as JAX's device mesh."""
 
     world_size: int
     rank: int
     device: torch.device
     backend: str
     group: Any
+    axis_names: Tuple[str, ...] = ("data",)
+    shape: Tuple[int, ...] = ()
+    axes: Dict[str, Axis] = field(default_factory=dict)
 
     @property
     def size(self) -> int:
-        """Ranks on the data axis (JAX's ``mesh.devices.size``)."""
+        """Ranks of the mesh (JAX's ``mesh.devices.size``)."""
         return self.world_size
+
+    def axis(self, name: str) -> Axis:
+        if name not in self.axes:
+            raise KeyError(f"mesh axes {self.axis_names} have no {name!r}")
+        return self.axes[name]
 
 
 def _local_rank(rank: int) -> int:
@@ -108,14 +161,13 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
 def make_mesh(n_devices: Optional[int] = None,
               axis_names: Sequence[str] = ("data",),
               shape: Optional[Sequence[int]] = None) -> Mesh:
-    """The 1-D data mesh over every rank of the initialised group.
+    """The mesh over every rank of the initialised group.
 
     `n_devices`, where given, must equal the world size: each rank holds
-    one device.  A 2-D `shape` or a second axis name raises."""
-    if (shape is not None and len(shape) > 1) or len(axis_names) > 1:
-        raise NotImplementedError(
-            f"mesh shape {tuple(shape or ())} over {tuple(axis_names)}: "
-            f"{GRAPH_AXIS_REFUSAL}")
+    one device.  `shape` (default: all ranks on one axis) must multiply
+    to the world size, one entry per axis name.  Every rank must call
+    this alike: the subgroups of a multi-axis mesh are made by all ranks
+    together."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs the process group: call "
                            "initialize_distributed first")
@@ -123,12 +175,72 @@ def make_mesh(n_devices: Optional[int] = None,
     if n_devices is not None and int(n_devices) != world:
         raise ValueError(f"a mesh of {n_devices} devices over {world} "
                          f"ranks: each rank holds one device")
+    axis_names = tuple(axis_names)
+    shape = (world,) if shape is None else tuple(int(s) for s in shape)
+    if len(shape) != len(axis_names) or int(np.prod(shape)) != world:
+        raise ValueError(f"mesh shape {shape} over axes {axis_names} does "
+                         f"not lay out {world} ranks")
+    rank = dist.get_rank()
+    grid = np.arange(world).reshape(shape)
+    axes = {}
+    for a, name in enumerate(axis_names):
+        if len(shape) == 1:
+            axes[name] = Axis(name, dist.group.WORLD, tuple(range(world)),
+                              rank)
+            continue
+        for row in np.moveaxis(grid, a, -1).reshape(-1, shape[a]):
+            ranks = tuple(int(r) for r in row)
+            group = dist.new_group(list(ranks))   # every rank, every row
+            if rank in ranks:
+                axes[name] = Axis(name, group, ranks, ranks.index(rank))
     device = _RANK_DEVICE
     if device is None:   # a group this module did not start
         device = torch.device("cuda", torch.cuda.current_device()) \
             if dist.get_backend() == "nccl" else torch.device("cpu")
-    return Mesh(world_size=world, rank=dist.get_rank(), device=device,
-                backend=dist.get_backend(), group=dist.group.WORLD)
+    return Mesh(world_size=world, rank=rank, device=device,
+                backend=dist.get_backend(), group=dist.group.WORLD,
+                axis_names=axis_names, shape=shape, axes=axes)
+
+
+# the order token of the collectives of one step (ordered_collectives)
+_ORDER = {"token": None}
+
+
+@contextlib.contextmanager
+def ordered_collectives(device):
+    """Inside, every differentiable collective of this module takes the
+    order token of the one before it and hands a new one on, so that in a
+    backward pass each collective's node waits for the next one's: the
+    ranks then meet their collectives in one order, the reverse of the
+    order in which they were made.
+
+    Without it the autograd engine picks among ready nodes by sequence
+    numbers that each thread counts for itself.  A force loss's inner
+    backward makes its nodes on the device's worker thread, the forward
+    on the calling one, so in the outer backward the order between the
+    two kinds of nodes depends on how much autograd work each thread has
+    done before; ranks that did different work (one of them validated, or
+    computed a reference) would then wait in different collectives."""
+    before = _ORDER["token"]
+    _ORDER["token"] = torch.zeros((), device=device, requires_grad=True)
+    try:
+        yield
+    finally:
+        _ORDER["token"] = before
+
+
+def _chained(fn, *args):
+    """``fn.apply(*args, token)``, with the order token threaded through
+    where a chain is active (fn returns its output and the next token)."""
+    token = _ORDER["token"]
+    out, nxt = fn.apply(*args, token)
+    if token is not None:
+        _ORDER["token"] = nxt
+    return out
+
+
+def _next_token(token):
+    return None if token is None else token.new_zeros(())
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -136,20 +248,22 @@ class _AllReduceSum(torch.autograd.Function):
     (every rank's output depends on every rank's input)."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+    def forward(ctx, x: torch.Tensor, group, token):
         ctx.group = group
         out = torch.clone(x, memory_format=torch.contiguous_format)
+        t0 = time.perf_counter()
         dist.all_reduce(out, group=group)
-        return out
+        _count(t0, out)
+        return out, _next_token(token)
 
     @staticmethod
-    def backward(ctx, grad: torch.Tensor):
-        return _AllReduceSum.apply(grad, ctx.group), None
+    def backward(ctx, grad: torch.Tensor, _token_grad):
+        return _chained(_AllReduceSum, grad, ctx.group), None, None
 
 
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of `x` over the ranks of `group`, differentiable."""
-    return _AllReduceSum.apply(x, group)
+    return _chained(_AllReduceSum, x, group)
 
 
 def all_reduce_mean_(flat: torch.Tensor, group) -> torch.Tensor:
@@ -157,3 +271,71 @@ def all_reduce_mean_(flat: torch.Tensor, group) -> torch.Tensor:
     no AVG) divided by the world size."""
     dist.all_reduce(flat, group=group)
     return flat.div_(dist.get_world_size(group))
+
+
+def _count(t0: float, x: torch.Tensor) -> None:
+    COLLECTIVE_STATS["calls"] += 1
+    COLLECTIVE_STATS["bytes"] += x.numel() * x.element_size()
+    COLLECTIVE_STATS["seconds"] += time.perf_counter() - t0
+
+
+def shift_transport(x: torch.Tensor, group) -> str:
+    """How :func:`ring_shift` moves `x`: ``"host-staged"`` (gloo, a CUDA
+    tensor: copied to the host, sent, copied back) or ``"direct"``."""
+    if x.is_cuda and dist.get_backend(group) == "gloo":
+        return "host-staged"
+    return "direct"
+
+
+def _shift(x: torch.Tensor, axis: Axis, k: int) -> torch.Tensor:
+    """Rank j's `x` arrives at rank j + k (mod the axis size)."""
+    d = axis.size
+    if k % d == 0:
+        return x.clone()
+    t0 = time.perf_counter()
+    staged = shift_transport(x, axis.group) == "host-staged"
+    send = x.detach().contiguous()
+    if staged:
+        send = send.cpu()
+    recv = torch.empty_like(send)
+    ops = [dist.P2POp(dist.isend, send, axis.ranks[(axis.index + k) % d],
+                      axis.group),
+           dist.P2POp(dist.irecv, recv, axis.ranks[(axis.index - k) % d],
+                      axis.group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    out = recv.to(x.device) if staged else recv
+    _count(t0, send)
+    return out
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, axis: Axis, k: int, token):
+        ctx.axis, ctx.k = axis, k
+        return _shift(x, axis, k), _next_token(token)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor, _token_grad):
+        return ring_shift(g, ctx.axis, -ctx.k), None, None, None
+
+
+def ring_shift(x: torch.Tensor, axis: Axis, k: int = 1) -> torch.Tensor:
+    """The `x` of the rank k places before this one along `axis` (JAX's
+    ``ppermute`` with pairs ``(j, (j + k) % d)``); differentiable, its
+    backward the shift by -k."""
+    return _chained(_RingShift, x, axis, k)
+
+
+def all_gather(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """The axis' `x` concatenated along dim 0 in axis order (JAX's
+    ``all_gather`` then reshape); differentiable, its backward the
+    reduce-scatter of the cotangent (each rank's slot of its sum).
+
+    It is the all-reduce of `x` placed in this rank's slot of zeros, so
+    that it runs under gloo on CUDA tensors too."""
+    n = x.shape[0]
+    before = x.new_zeros((axis.index * n,) + tuple(x.shape[1:]))
+    after = x.new_zeros(((axis.size - axis.index - 1) * n,)
+                        + tuple(x.shape[1:]))
+    return all_reduce_sum(torch.cat([before, x, after]), axis.group)

@@ -180,7 +180,10 @@ def train_model(config: TrainingConfig, train_loader: BucketedLoader,
     os.makedirs(output_dir, exist_ok=True)
     dtype = COMPUTE_DTYPES[config.dtype]   # an unknown name raises first
     sharded = train_loader.num_shards > 1
-    is_main = train_loader.shard_index == 0
+    # several ranks may hold one shard (a data x graph mesh): rank 0 writes
+    ranks = _world_size()
+    is_main = train_loader.shard_index == 0 and (ranks == 1 or
+                                                 _rank() == 0)
     if is_main:
         config.dump(os.path.join(output_dir, "config.json"))
 
@@ -293,7 +296,7 @@ def train_model(config: TrainingConfig, train_loader: BucketedLoader,
                 no_improve += 1
         if config.n_early_stopping is not None:
             stop = no_improve >= config.n_early_stopping
-            if sharded:
+            if ranks > 1:
                 _from_rank0(stop, model_axis_name, model)
             if stop:
                 print(f"early stopping at epoch {epoch + 1}")
@@ -341,6 +344,18 @@ def train_model(config: TrainingConfig, train_loader: BucketedLoader,
     summary["train_time_s"] = time.time() - t0
     summary["state"] = state
     return summary
+
+
+def _world_size() -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 def _from_rank0(flag: bool, group, model: torch.nn.Module) -> bool:

@@ -4,9 +4,9 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --segments [--root DIR]
     python3 chip_smoke.py --pairs [--steps] [--root DIR]
-    python3 chip_smoke.py --dp | --bf16-order
+    python3 chip_smoke.py --dp | --gp | --bf16-order
 
-``--dp`` runs phase 13 alone; ``--bf16-order`` runs bench.py's bf16
+``--dp`` runs phase 13 alone, ``--gp`` phase 14; ``--bf16-order`` runs bench.py's bf16
 dense force step three times in one process and reports whether the
 backward's operations keep their order (:func:`order_probe`).
 ``--segments`` runs K1 and K2 alone (phase 2's K1/K2 part at the 512-atom
@@ -187,6 +187,30 @@ Phases:
    property model through ``cli.legacy`` from a dataset cache file.
    ``python3 chip_smoke.py --dp`` runs this phase alone (no ``{"ok"}``
    line).
+
+14. graph parallelism, fjvp and gated_bwd (``gp_phases``):
+   ``gp_transport`` sends a CUDA tensor over gloo's send/recv in two
+   processes of this script (``--gp-p2p``; gloo reads it as host memory,
+   so the ranks stage their shifts through the host); ``gp`` starts four
+   processes (``--gp-rank``) that share cuda:0 under gloo as a ("data",
+   "graph") mesh of shape (2, 2).  Data row 0 runs ``gp_ring`` (si512
+   with docs/mlearn_r4/Si at full width, edge-partitioned over its two
+   ranks, chain and gather mode) and ``gp_dense`` (the same cell dense,
+   halo-exchanged; halo rows printed): E/F/S against the one-process
+   Calculator (CPU_TOL), then 3 E/F/S train steps, each against the
+   one-process step from the same parameters (TRAIN_TOL, timed), and a
+   profiled step (kernel launches, device ms and the collectives' ms a
+   rank; K2 needed on the ring, K3/K4/K5a/K5b on the halo); then all four
+   run ``gp_2d``: bench.py's 64 rocksalt cells, 32 a data row, one data x
+   dense-halo and one data x ring step each against the mean of the rows'
+   one-process steps, the four ranks' parameters bit for bit; ``fjvp``:
+   train_cli (c)'s FF config on 8 labelled si64 cells, the fjvp step
+   against the standard step (losses, gradients, ms and device ms), each
+   forward-mode rule against ``torch.func.jvp`` of its plain version;
+   ``gated_bwd``: bench.py's dense step on 16 cells with
+   ``ALIGNN_TPU_GATED_BWD_OP=1`` against without it.  The ranks' logs
+   (stages, memory, a stack dump of a rank that hangs) go to
+   ``build/gp/logs/``.
 
 K3 is also launched twice at both dense shapes (bit-identical), with its
 fully masked (padded) nodes exactly 0 and one fill of its output timed
@@ -4801,6 +4825,681 @@ def dp_phases(failures: list) -> tuple:
     return rows, dp_launches, serve_launches
 
 
+# ---------------------------------------------------------------------------
+# graph parallelism (the ring and the dense halo), fjvp and gated_bwd
+# ---------------------------------------------------------------------------
+
+GP_DIR = os.path.join(REPO, "build", "gp")
+# the ranks' logs (stages, memory, a stack dump of a rank that hangs)
+GP_LOG_DIR = os.path.join(GP_DIR, "logs")
+GP_STEPS = 3          # E/F/S train steps of each si512 leg
+GP_ROW_CELLS = 32     # bench.py's 64 rocksalt cells, half a data row
+FJVP_CELLS = 8        # si64 cells of the fjvp step (train_cli (c)'s data)
+GP_TIMEOUT_S = 480    # the four ranks of the gp phase, start-up included
+
+
+GP_LOG = []   # this rank's log file, once gp_rank_main opened it
+
+
+def gp_log(*what):
+    """A line in this rank's log: seconds, the card's peak and reserved
+    GB, and `what`."""
+    import torch
+
+    if GP_LOG:
+        GP_LOG[0].write(f"{time.perf_counter():.2f} "
+                        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} "
+                        f"{torch.cuda.memory_reserved() / 1e9:.2f} "
+                        + " ".join(str(w) for w in what) + "\n")
+        GP_LOG[0].flush()
+
+
+def row_mesh_of(mesh):
+    """The 1-D graph mesh of this rank's data row."""
+    import dataclasses
+
+    return dataclasses.replace(mesh, axis_names=("graph",), shape=(2,),
+                               axes={"graph": mesh.axis("graph")})
+
+
+def labelled(g, seed: int):
+    """`g` with seeded energy, force and stress labels."""
+    rng = np.random.default_rng(seed)
+    g.target = np.array([rng.standard_normal()])
+    g.forces = 0.1 * rng.standard_normal((g.num_nodes, 3))
+    g.stress = 0.01 * rng.standard_normal((3, 3))
+    return g
+
+
+def grads_of(model) -> dict:
+    return {k: p.grad.detach().cpu().clone()
+            for k, p in model.named_parameters()}
+
+
+def profiled(fn):
+    """(launches of each kernel, device ms, collective seconds and calls)
+    of one profiled call of `fn`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from alignn_tpu_torch.parallel import mesh as meshlib
+
+    meshlib.reset_collective_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name, n_ops = device_ms_by_name(prof)
+    return {"launches": kernel_launches_in(prof),
+            "device_ms": sum(by_name.values()), "device_ops": n_ops,
+            "collective_ms": meshlib.COLLECTIVE_STATS["seconds"] * 1e3,
+            "collective_calls": meshlib.COLLECTIVE_STATS["calls"],
+            "collective_bytes": meshlib.COLLECTIVE_STATS["bytes"]}
+
+
+def gp_si512_leg(layout: str, mesh, fails: list) -> dict:
+    """One data row's two ranks on si512 (rattled 0.03 A) with
+    docs/mlearn_r4/Si at full width: the ring (chain and gather mode) or
+    the dense halo.  E/F/S against the one-process Calculator on the card
+    (CPU_TOL), then GP_STEPS E/F/S train steps, each step's losses and
+    gradients against the one-process step from the same parameters
+    (TRAIN_TOL, on the row's first rank), and one step profiled."""
+    import torch
+
+    from alignn_tpu_torch.ff.calculator import Calculator
+    from alignn_tpu_torch.nn.models import ALIGNNAtomWise
+    from alignn_tpu_torch.parallel import dense_gp, dp_gp, graph_parallel
+    from alignn_tpu_torch.parallel import mesh as meshlib
+    from alignn_tpu_torch.train.optim import build_optimizer
+    from alignn_tpu_torch.train.state import (create_train_state,
+                                              make_train_step)
+
+    axis = mesh.axis("graph")
+    base = Calculator(path=MODEL_DIR)
+    dense = layout == "dense"
+    config = {**base.config, "use_canonize": True} if dense else base.config
+    calc = Calculator(model=base.model, config=config, dense=dense)
+    atoms = rattled_supercell(4)
+    g = labelled(calc.graph_for(atoms), 7)
+    batch = calc.batch_for(g)
+    row = {"layout": layout, "atoms": atoms.num_atoms,
+           "edges": int(batch.src.shape[0]),
+           "lg_rows": int(batch.lg_src.shape[0]), "dense_D": batch.dense_D}
+    if bool(batch.dense_D) != dense:
+        fails.append(f"gp_{layout}: the Calculator built the other layout")
+        return row
+    if dense:
+        idx = dense_gp.make_dense_gp_index(batch, axis.size)
+        row["halo_rows"] = {"node": idx.node_halo.total,
+                            "edge": idx.edge_halo.total,
+                            "node_steps": idx.node_halo.steps,
+                            "edge_steps": idx.edge_halo.steps,
+                            "node_rows_local": batch.z.shape[0] // 2,
+                            "edge_rows_local": batch.src.shape[0] // 2}
+    else:
+        ring = graph_parallel.make_ring_index(batch, axis.size)
+        row["ring_steps"] = ring.steps
+    ref = calc.calculate(atoms)
+    gp_log(layout, "one-process calculate")
+    lead = axis.index == 0
+    modes = ("chain", "gather") if not dense else ("halo",)
+    for mode in modes:
+        if not dense:
+            os.environ["ALIGNN_TPU_GP_RING"] = mode
+        make = dense_gp.make_dense_gp_forward if dense else \
+            graph_parallel.make_gp_forward
+        fwd = make(base.model, mesh)
+        gp_calc = Calculator(model=base.model, config=config, dense=dense)
+        gp_calc.forward = lambda b: dict(zip(("out", "grad", "stresses"),
+                                             fwd(b)))
+        gp_calc.calculate(atoms)            # warm
+        torch.cuda.synchronize()
+        gp_log(layout, mode, "gp calculate warm")
+        reset_launches()
+        meshlib.reset_collective_stats()
+        t = time.perf_counter()
+        got = gp_calc.calculate(atoms)
+        m = {"ms": (time.perf_counter() - t) * 1e3,
+             "launches": read_launches(),
+             "collective_ms": meshlib.COLLECTIVE_STATS["seconds"] * 1e3}
+        case = [({"cell": f"si512 gp_{layout} {mode}"}, atoms, got)]
+        check_results(case, [ref], "one_process_calculator", fails)
+        m.update(case[0][0])
+        m["profiled"] = profiled(lambda: gp_calc.calculate(atoms))
+        row[f"serve_{mode}"] = m
+
+        model = ALIGNNAtomWise(base.model.cfg).cuda()
+        model.load_state_dict(base.model.state_dict())
+        step = (dense_gp.make_dense_gp_train_step if dense else
+                dp_gp.make_dp_gp_train_step)(model, mesh)
+        state = create_train_state(model, batch,
+                                   build_optimizer("adamw", 1e-3, 1e-5))
+        steps = []
+        for k in range(GP_STEPS):
+            if lead:   # the one-process step from the same parameters
+                one = ALIGNNAtomWise(base.model.cfg).cuda()
+                one.load_state_dict(model.state_dict())
+                one_state = create_train_state(
+                    one, batch, build_optimizer("adamw", 1e-3, 1e-5))
+                one_step = make_train_step(one, cuda_graph=False)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                _s, lo = one_step(one_state, batch)
+                torch.cuda.synchronize()
+                one_ms = (time.perf_counter() - t) * 1e3
+                want = ({k2: float(v) for k2, v in lo.items()},
+                        grads_of(one))
+                if k == GP_STEPS - 1:   # its device time, once
+                    row[f"one_process_{mode}"] = {
+                        "ms": one_ms, "device_ms": profiled(
+                            lambda: one_step(one_state, batch))[
+                                "device_ms"]}
+                del one, one_state, one_step
+                torch.cuda.empty_cache()
+                gp_log(layout, mode, "one-process step", k)
+            torch.cuda.synchronize()
+            reset_launches()
+            meshlib.reset_collective_stats()
+            t = time.perf_counter()
+            state, lo = step(state, batch)
+            torch.cuda.synchronize()
+            s = {"ms": (time.perf_counter() - t) * 1e3,
+                 "launches": read_launches(),
+                 "collective_ms": meshlib.COLLECTIVE_STATS["seconds"] * 1e3,
+                 "losses": {k2: float(v) for k2, v in lo.items()}}
+            gp_log(layout, mode, "gp step", k, s["ms"])
+            if lead:
+                s["one_process_ms"] = one_ms
+                s["vs_one_process"] = step_diff(
+                    (s["losses"], grads_of(model)), want,
+                    f"gp_{layout} {mode} step {k}", fails)
+            steps.append(s)
+        row[f"train_{mode}"] = {"steps": steps,
+                                "profiled": profiled(
+                                    lambda: step(state, batch))}
+        del model, state, step
+        torch.cuda.empty_cache()
+    os.environ.pop("ALIGNN_TPU_GP_RING", None)
+    need = ("K3", "K4", "K5a", "K5b") if dense else ("K2",)
+    for mode in modes:
+        counts = row[f"train_{mode}"]["profiled"]["launches"]
+        if any(counts[k] <= 0 for k in need):
+            fails.append(f"gp_{layout} {mode}: a train step on rank "
+                         f"{mesh.rank} launched {counts}, needs {need}")
+    return row
+
+
+def gp_2d_legs(mesh, fails: list) -> dict:
+    """The 2 x 2 (data, graph) legs on bench.py's 64 rocksalt cells (32 a
+    data row), bench.py's model (f32, seeded): one data x dense-halo step
+    and one data x ring step, each against the mean of the two rows'
+    one-process steps (on rank 0)."""
+    import torch
+
+    from alignn_tpu_torch.graph.batch import BucketSpec, batch_graphs
+    from alignn_tpu_torch.graph.dense import (dense_batch_graphs,
+                                              dense_spec_for_graphs)
+    from alignn_tpu_torch.nn.models import (ALIGNNAtomWise,
+                                            ALIGNNAtomWiseConfig,
+                                            init_parameters)
+    from alignn_tpu_torch.parallel import dense_gp, dp_gp
+    from alignn_tpu_torch.parallel import mesh as meshlib
+    from alignn_tpu_torch.train.optim import build_optimizer
+    from alignn_tpu_torch.train.state import create_train_state
+
+    graphs = rocksalt_b64()
+    rows = [graphs[:GP_ROW_CELLS], graphs[GP_ROW_CELLS:2 * GP_ROW_CELLS]]
+    weights = init_parameters(ALIGNNAtomWise(ALIGNNAtomWiseConfig(
+        **TRAIN_CFG)), torch.Generator().manual_seed(0)).state_dict()
+    dev = torch.device("cuda")
+    out = {}
+    for layout in ("dense", "sparse"):
+        if layout == "dense":
+            spec = dense_spec_for_graphs(graphs, GP_ROW_CELLS)
+            batches = [dense_batch_graphs(r, spec, dev) for r in rows]
+            make = dense_gp.make_dp_dense_gp_train_step
+        else:
+            spec = BucketSpec.for_graphs(graphs, GP_ROW_CELLS)
+            batches = [batch_graphs(r, spec, dev) for r in rows]
+            make = dp_gp.make_dp_gp_train_step
+        batch = batches[mesh.axis("data").index]
+        model = ALIGNNAtomWise(ALIGNNAtomWiseConfig(**TRAIN_CFG)).cuda()
+        model.load_state_dict(weights)
+        state = create_train_state(model, batch,
+                                   build_optimizer("adamw", 1e-3, 1e-5))
+        step = make(model, mesh)
+        torch.cuda.synchronize()
+        reset_launches()
+        meshlib.reset_collective_stats()
+        t = time.perf_counter()
+        state, lo = step(state, batch)
+        torch.cuda.synchronize()
+        row = {"ms": (time.perf_counter() - t) * 1e3,
+               "launches": read_launches(),
+               "collective_ms": meshlib.COLLECTIVE_STATS["seconds"] * 1e3,
+               "losses": {k: float(v) for k, v in lo.items()}}
+        first_grads = grads_of(model)
+        meshlib.reset_collective_stats()
+        t = time.perf_counter()
+        step(state, batch)     # the second step, warm
+        torch.cuda.synchronize()
+        row["ms_second_step"] = (time.perf_counter() - t) * 1e3
+        row["collective_ms_second_step"] = \
+            meshlib.COLLECTIVE_STATS["seconds"] * 1e3
+        if mesh.rank == 0:
+            firsts = [first_step(weights, b) for b in batches]
+            mean = ({k: (firsts[0][0][k] + firsts[1][0][k]) / 2
+                     for k in firsts[0][0]},
+                    {k: (firsts[0][1][k] + firsts[1][1][k]) / 2
+                     for k in firsts[0][1]})
+            row["vs_mean_one_process"] = step_diff(
+                (row["losses"], first_grads), mean,
+                f"gp_2d {layout}", fails)
+        row["params_sha256"] = digest_params(model)
+        need = ("K3", "K4", "K5a", "K5b") if layout == "dense" else ("K2",)
+        if any(row["launches"][k] <= 0 for k in need):
+            fails.append(f"gp_2d {layout}: rank {mesh.rank} launched "
+                         f"{row['launches']}, needs {need}")
+        out[layout] = row
+        gp_log("2d", layout, row["ms"])
+        del model, state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def digest_params(model) -> str:
+    import hashlib
+
+    return hashlib.sha256(b"".join(
+        v.detach().cpu().numpy().tobytes()
+        for v in model.state_dict().values())).hexdigest()
+
+
+def gp_rank_main(rank: int, port: int, out: str) -> int:
+    """One of four gloo ranks sharing cuda:0 (``--gp-rank``), a
+    ("data", "graph") mesh of shape (2, 2): data row 0 runs the si512
+    ring and halo legs (:func:`gp_si512_leg`) while row 1 waits, then all
+    four run :func:`gp_2d_legs`.  Writes its numbers to
+    `out`/rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+
+    from alignn_tpu_torch.parallel.mesh import (initialize_distributed,
+                                                make_mesh, shift_transport)
+
+    import faulthandler
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(2)    # four ranks on the host's 8 cores
+    os.makedirs(GP_LOG_DIR, exist_ok=True)
+    GP_LOG.append(open(os.path.join(GP_LOG_DIR, f"rank{rank}.log"), "w"))
+    faulthandler.dump_traceback_later(GP_TIMEOUT_S - 60, file=GP_LOG[0])
+    initialize_distributed(f"localhost:{port}", 4, rank, device="cuda",
+                           backend="gloo")
+    gp_log("joined")
+    fails: list = []
+    result: dict = {"rank": rank}
+    try:
+        mesh = make_mesh(4, ("data", "graph"), (2, 2))
+        result["transport"] = shift_transport(
+            torch.zeros(1, device="cuda"), mesh.axis("graph").group)
+        t = time.perf_counter()
+        if mesh.axis("data").index == 0:
+            row_mesh = row_mesh_of(mesh)
+            result["gp_ring"] = gp_si512_leg("sparse", row_mesh, fails)
+            result["gp_dense"] = gp_si512_leg("dense", row_mesh, fails)
+        result["si512_seconds"] = time.perf_counter() - t
+        dist.barrier()
+        t = time.perf_counter()
+        result["gp_2d"] = gp_2d_legs(mesh, fails)
+        result["gp_2d_seconds"] = time.perf_counter() - t
+    finally:
+        result["failures"] = fails
+        write_json(os.path.join(out, f"rank{rank}.json"), result)
+        dist.destroy_process_group()
+    return 0
+
+
+def gp_p2p_rank(rank: int, port: int) -> int:
+    """``--gp-p2p``: whether gloo's send/recv takes CUDA tensors (two
+    ranks; rank 1 prints what arrived).  Run apart from everything: gloo
+    reads the send buffer as host memory."""
+    import torch
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=rank)
+    try:
+        x = torch.full((4,), float(rank + 1), device="cuda")
+        if rank == 0:
+            dist.send(x, 1)
+        else:
+            dist.recv(x, 0)
+            print(json.dumps({"received": x.cpu().tolist()}), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def gp_p2p_probe() -> dict:
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--gp-p2p", str(r),
+         str(port)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in (0, 1)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=90)[0].decode(
+                errors="replace"))
+    except subprocess.TimeoutExpired:
+        logs.append("timeout")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ok = all(p.returncode == 0 for p in procs) and \
+        '"received": [1.0, 1.0, 1.0, 1.0]' in logs[1]
+    return {"gloo_p2p_takes_cuda": ok,
+            "returncodes": [p.returncode for p in procs],
+            "log_tail": [log[-300:] for log in logs]}
+
+
+def gp_phase(failures: list) -> dict:
+    """The four gloo ranks of :func:`gp_rank_main`, bounded by a hard
+    timeout: the ring and halo legs (gp_ring, gp_dense) and the 2 x 2
+    legs (gp_2d), their failures, and the four ranks' parameters bit for
+    bit after each 2 x 2 step."""
+    import shutil
+
+    out = os.path.join(GP_DIR, "ranks")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    os.makedirs(GP_LOG_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    port = free_port()
+    logs = [open(os.path.join(GP_LOG_DIR, f"rank{r}.out"), "w")
+            for r in range(4)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--gp-rank", str(r),
+         str(port), out], stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(4)]
+    try:   # a failed rank ends the others at once (they would wait in a
+        # collective); all end by the deadline
+        while time.perf_counter() - t0 < GP_TIMEOUT_S and \
+                any(p.poll() is None for p in procs) and \
+                not any(p.poll() for p in procs):
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    logs = [open(f.name).read() for f in logs]
+    rows = {"seconds": time.perf_counter() - t0}
+    got = [read_json(os.path.join(out, f"rank{r}.json"))
+           if os.path.exists(os.path.join(out, f"rank{r}.json")) else None
+           for r in range(4)]
+    if any(p.returncode != 0 for p in procs) or None in got:
+        failures.append("gp: a rank failed: " + " | ".join(
+            log[-2000:] for log in logs))
+        return rows
+    for r in got:
+        failures.extend(r["failures"])
+    rows["transport"] = got[0]["transport"]
+    rows["gp_ring"] = {f"rank{r}": got[r]["gp_ring"] for r in (0, 1)}
+    rows["gp_dense"] = {f"rank{r}": got[r]["gp_dense"] for r in (0, 1)}
+    rows["gp_2d"] = {f"rank{r}": got[r]["gp_2d"] for r in range(4)}
+    rows["rank_seconds"] = [(r["si512_seconds"], r["gp_2d_seconds"])
+                            for r in got]
+    for layout in ("dense", "sparse"):
+        shas = {r["gp_2d"][layout]["params_sha256"] for r in got}
+        if len(shas) != 1:
+            failures.append(f"gp_2d {layout}: the four ranks' parameters "
+                            f"differ after the step")
+    return rows
+
+
+def fjvp_phase(failures: list) -> dict:
+    """train_cli (c)'s FF config (docs/mlearn_r4/Si, full width) on
+    FJVP_CELLS labelled si64 cells: the fjvp step against the standard
+    step on the card (losses and gradients, TRAIN_TOL), both steps' wall
+    and device ms; then each forward-mode rule against ``torch.func.jvp``
+    of its plain version on the card."""
+    import torch
+
+    from alignn_tpu_torch.ff.calculator import Calculator
+    from alignn_tpu_torch.graph.batch import BucketSpec, batch_graphs
+    from alignn_tpu_torch.nn.models import ALIGNNAtomWise
+    from alignn_tpu_torch.train.fjvp import make_train_step_fjvp
+    from alignn_tpu_torch.train.optim import build_optimizer
+    from alignn_tpu_torch.train.state import (create_train_state,
+                                              make_train_step)
+
+    t0 = time.perf_counter()
+    base = Calculator(path=MODEL_DIR)
+    graphs = []
+    for seed in range(FJVP_CELLS):
+        sc = diamond().make_supercell([2, 2, 2])
+        cart = sc.cart_coords + np.random.default_rng(seed).normal(
+            0.0, 0.05, sc.cart_coords.shape)
+        from alignn_tpu_torch.chem.atoms import Atoms
+
+        atoms = Atoms(lattice_mat=sc.lattice_mat,
+                      frac_coords=cart @ np.linalg.inv(sc.lattice_mat),
+                      elements=sc.elements)
+        graphs.append(labelled(base.graph_for(atoms), 100 + seed))
+    batch = batch_graphs(graphs, BucketSpec.tight_for_batch(graphs),
+                         torch.device("cuda"))
+    weights = base.model.state_dict()
+    row = {"config": "docs/mlearn_r4/Si", "cells": FJVP_CELLS,
+           "edges": int(batch.src.shape[0]),
+           "lg_rows": int(batch.lg_src.shape[0])}
+    results = {}
+    for name, make in (("standard", lambda m: make_train_step(
+            m, cuda_graph=False)), ("fjvp", make_train_step_fjvp)):
+        model = ALIGNNAtomWise(base.model.cfg).cuda()
+        model.load_state_dict(weights)
+        state = create_train_state(model, batch,
+                                   build_optimizer("adamw", 1e-3, 1e-5))
+        step = make(model)
+        reset_launches()
+        _s, lo = step(state, batch)
+        first = ({k: float(v) for k, v in lo.items()}, grads_of(model))
+        launches = read_launches()
+        times = []
+        for _ in range(3):
+            model.load_state_dict(weights)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        prof = profiled(lambda: step(state, batch))
+        results[name] = first
+        row[name] = {"ms": float(np.median(times)), "ms_runs": times,
+                     "device_ms": prof["device_ms"],
+                     "device_ops": prof["device_ops"],
+                     "launches_first_step": launches,
+                     "launches_profiled": prof["launches"],
+                     "losses": first[0]}
+        if any(launches[k] <= 0 for k in ("K1", "K2")):
+            failures.append(f"fjvp {name}: launches {launches}")
+        del model, state, step
+        torch.cuda.empty_cache()
+    row["fjvp_vs_standard"] = step_diff(results["fjvp"],
+                                        results["standard"],
+                                        "fjvp vs standard", failures)
+    if row["standard"]["device_ms"] > 0:
+        row["device_ms_ratio"] = row["fjvp"]["device_ms"] / \
+            row["standard"]["device_ms"]
+    row["jvp_rules"] = jvp_rules_on_card(batch, failures)
+    row["seconds"] = time.perf_counter() - t0
+    return row
+
+
+def jvp_rules_on_card(batch, failures: list) -> dict:
+    """Each forward-mode rule (the kernels for primal and tangent) against
+    ``torch.func.jvp`` of its plain version, f32, on the card: K1/K2 and
+    the gathers at the fjvp batch's L-stage segments (F 256), K3/K4 at
+    D 13, F 256, 64 nodes."""
+    import torch
+    from torch.autograd import forward_ad
+
+    from alignn_tpu_torch.ops import dense as od
+    from alignn_tpu_torch.ops import eggc as oe
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    lg = batch.lg_index
+    seg, rows, f, D, n = lg.dst, lg.dst.ids.shape[0], 256, 13, 64
+    e = batch.src.shape[0]
+    rules = {
+        "K1": (lambda m, bh: oe.gated_aggregate(m, bh, seg),
+               lambda m, bh: oe.gated_aggregate_plain(m, bh, seg),
+               (rand(rows, f), rand(rows, f))),
+        "K2": (lambda x: oe.sorted_segment_sum(x, seg),
+               lambda x: oe.sorted_segment_sum_plain(x, seg),
+               (rand(rows, f),)),
+        "sorted_gather": (lambda x: oe.sorted_gather(x, seg),
+                          lambda x: x[seg.ids], (rand(e, f),)),
+        "gather_nodes": (
+            lambda x: oe.gather_nodes(x, lg.src, lg.src_perm,
+                                      lg.src_perm_inv, lg.src_sorted),
+            lambda x: x[lg.src], (rand(e, f),)),
+        "permute_rows": (
+            lambda x: oe.permute_rows(x, lg.src_perm, lg.src_perm_inv),
+            lambda x: x[lg.src_perm], (rand(rows, f),)),
+        "K3": (lambda m, bh: od.dense_gated_aggregate(m, bh, D),
+               lambda m, bh: od.dense_gated_aggregate_plain(m, bh, D),
+               (rand(n * D, f), rand(n * D, f))),
+        "K4": (lambda m2, bh: od.dense_pair_aggregate(m2, bh, D),
+               lambda m2, bh: od.dense_pair_aggregate_plain(m2, bh, D),
+               (rand(n * D * D, f), rand(n * D, f))),
+    }
+    out = {}
+    for name, (op, plain, primals) in rules.items():
+        tangents = tuple(rand(*x.shape) for x in primals)
+        _o, want = torch.func.jvp(plain, primals, tangents)
+        reset_launches()
+        with forward_ad.dual_level():
+            duals = [forward_ad.make_dual(x, t)
+                     for x, t in zip(primals, tangents)]
+            got = forward_ad.unpack_dual(op(*duals)).tangent
+        torch.cuda.synchronize()
+        out[name] = {**compare(got, want, "float32", failures,
+                               f"jvp rule {name}"),
+                     "launches": {k: v for k, v in read_launches().items()
+                                  if v}}
+    return out
+
+
+def gated_bwd_phase(failures: list) -> dict:
+    """bench.py's dense E/F/S step (f32, seeded, the first 16 rocksalt
+    cells) with ``ALIGNN_TPU_GATED_BWD_OP=1`` against without it on the
+    card: the first step's losses and gradients (TRAIN_TOL), and each
+    way's eager step (median ms of 3 after a warm-up, device ms of one
+    profiled step)."""
+    import torch
+
+    from alignn_tpu_torch.nn.models import (ALIGNNAtomWise,
+                                            ALIGNNAtomWiseConfig,
+                                            init_parameters)
+    from alignn_tpu_torch.train.optim import build_optimizer
+    from alignn_tpu_torch.train.state import (create_train_state,
+                                              make_train_step)
+
+    t0 = time.perf_counter()
+    weights = init_parameters(ALIGNNAtomWise(ALIGNNAtomWiseConfig(
+        **TRAIN_CFG)), torch.Generator().manual_seed(0)).state_dict()
+    batch = train_batches(rocksalt_b64()[:16],
+                          torch.device("cuda"))["dense"]
+    row = {"cells": 16}
+    firsts = {}
+    for name in ("off", "on"):
+        ctx = switch_env("ALIGNN_TPU_GATED_BWD_OP") if name == "on" \
+            else contextlib.nullcontext()
+        with ctx:
+            firsts[name] = first_step(weights, batch)
+            model = ALIGNNAtomWise(ALIGNNAtomWiseConfig(**TRAIN_CFG)).cuda()
+            model.load_state_dict(weights)
+            state = create_train_state(model, batch,
+                                       build_optimizer("adamw", 1e-3, 1e-5))
+            step = make_train_step(model, cuda_graph=False)
+            step(state, batch)                 # warm
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                step(state, batch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+            row[name] = {"ms": float(np.median(times)), "ms_runs": times,
+                         "device_ms": profiled(
+                             lambda: step(state, batch))["device_ms"]}
+            del model, state, step
+    row["on_vs_off"] = step_diff(firsts["on"], firsts["off"],
+                                 "gated_bwd on vs off", failures)
+    row["seconds"] = time.perf_counter() - t0
+    return row
+
+
+def gp_phases(failures: list) -> dict:
+    """The graph-parallel phases (gp_transport, gp: gp_ring, gp_dense and
+    gp_2d), then fjvp and gated_bwd, each with its seconds."""
+    rows = {}
+    t = time.perf_counter()
+    rows["gp_transport"] = {**gp_p2p_probe(),
+                            "seconds": time.perf_counter() - t}
+    rows["gp"] = gp_phase(failures)
+    rows["fjvp"] = fjvp_phase(failures)
+    rows["gated_bwd"] = gated_bwd_phase(failures)
+    return rows
+
+
+def gp_launches(rows: dict) -> dict:
+    """{leg: launches of each kernel} of the GP phases: rank 0's profiled
+    train step of each si512 leg and its 2 x 2 steps, and fjvp's first
+    step."""
+    gp = rows.get("gp", {})
+    out = {}
+    for leg, modes in (("gp_ring", ("chain", "gather")),
+                       ("gp_dense", ("halo",))):
+        for mode in modes:
+            r0 = gp.get(leg, {}).get("rank0", {})
+            if f"train_{mode}" in r0:
+                out[f"{leg}_{mode}_rank0"] = \
+                    r0[f"train_{mode}"]["profiled"]["launches"]
+    for layout, r in gp.get("gp_2d", {}).get("rank0", {}).items():
+        out[f"gp_2d_{layout}_rank0"] = r["launches"]
+    if "fjvp" in rows:
+        out["fjvp_step"] = rows["fjvp"]["fjvp"]["launches_first_step"]
+    return out
+
+
+def gp_probe() -> int:
+    """``--gp``: the kernels built, then :func:`gp_phases` alone; no
+    ``{"ok"}`` line."""
+    from alignn_tpu_torch import _build
+
+    print(smi_line(), flush=True)
+    _build.build_all()
+    failures: list = []
+    rows = gp_phases(failures)
+    for name, row in rows.items():
+        emit({"phase": name, **row})
+    emit({"launches_gp": gp_launches(rows)})
+    for msg in failures:
+        print(f"chip_smoke FAILED: {msg}", file=sys.stderr)
+    return 1 if failures else 0
+
+
 def order_probe() -> int:
     """``--bf16-order``: bench.py's E/F/S step (bf16, dense, 64 rocksalt
     cells), forward and backward, eager, under deterministic algorithms,
@@ -4905,8 +5604,17 @@ def main() -> int:
         return segments_probe()
     if "--pairs" in args:
         return pairs_probe("--steps" in args)
+    if "--gp-rank" in args:     # a rank of the gp phase's four
+        i = args.index("--gp-rank")
+        return gp_rank_main(int(args[i + 1]), int(args[i + 2]),
+                            args[i + 3])
+    if "--gp-p2p" in args:      # a rank of the gloo send/recv probe
+        i = args.index("--gp-p2p")
+        return gp_p2p_rank(int(args[i + 1]), int(args[i + 2]))
     if "--dp" in args:
         return dp_probe()
+    if "--gp" in args:
+        return gp_probe()
     if "--bf16-order" in args:
         return order_probe()
     from alignn_tpu_torch import _build
@@ -5102,6 +5810,17 @@ def main() -> int:
     emit({"phase": "dp_serve_legacy", "part": "total",
           "seconds": time.perf_counter() - t})
 
+    # graph parallelism (four gloo ranks on cuda:0), the forward-over-
+    # reverse step and the opt-in gated_aggregate_bwd: counts from 0 over
+    # each leg
+    t = time.perf_counter()
+    gp_rows = gp_phases(failures)
+    for name, row in gp_rows.items():
+        emit({"phase": name, **row})
+    gp_counts = gp_launches(gp_rows)
+    emit({"phase": "gp_fjvp_gated_bwd", "part": "total",
+          "seconds": time.perf_counter() - t})
+
     line = []
     for key, name, source, replaces in KERNELS:
         r = kernels.get(key)
@@ -5149,6 +5868,10 @@ def main() -> int:
                 layout: counts[key] for layout, counts in dp_launches.items()},
             "launches_per_serve_request": {
                 req: counts[key] for req, counts in serve_launches.items()},
+            # the graph-parallel legs' profiled steps (rank 0) and the
+            # fjvp step's
+            "launches_per_gp_step": {
+                leg: counts[key] for leg, counts in gp_counts.items()},
             # counted from the profiler: a replay moves no counter
             "launches_per_captured_step": {
                 **{run: cli_rows[run]["replayed_step"][

@@ -10,6 +10,7 @@ import os
 
 import numpy as np
 import pytest
+from torch_port_threads import _two_threads  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SI_DIR = os.path.join(REPO, "docs", "mlearn_r4", "Si")

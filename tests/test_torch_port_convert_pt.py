@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 from torch import nn
+from torch_port_threads import _two_threads  # noqa: E402,F401
 
 SMALL = dict(alignn_layers=1, gcn_layers=1, hidden_features=32,
              embedding_features=16)

@@ -11,6 +11,7 @@ buckets from ``dense_spec_for_graphs`` and ``dense_spec_from_counts``.
 import numpy as np
 import pytest
 import torch
+from torch_port_threads import _two_threads  # noqa: E402,F401
 
 CPU = torch.device("cpu")
 BATCH_KEYS = ("z", "atom_features", "frac_coords", "node_graph", "node_mask",

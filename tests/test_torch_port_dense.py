@@ -17,6 +17,7 @@ import torch
 
 from alignn_tpu.ops import pallas_dense as jd
 from alignn_tpu_torch.ops import dense as td
+from torch_port_threads import _two_threads  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SI_DIR = os.path.join(REPO, "docs", "mlearn_r4", "Si")

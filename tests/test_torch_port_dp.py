@@ -14,7 +14,8 @@ bit-identical, and ``train_model_dp``'s rank 1 writing nothing; (c) a
 world-size-1 step equals the single-rank step bit for bit; (d)
 ``cli.train --devices 2 --device cpu`` against JAX's
 ``train_for_folder(devices=2)``, and ``--profile`` under shards; (e) the
-mesh's and the trainer's refusals.  1+1 layers, width 32, 16 rattled rocksalt cells.
+mesh's and the trainer's refusals (graph-axis parallelism itself is
+``tests/test_torch_port_gp.py``'s).  1+1 layers, width 32, 16 rattled rocksalt cells.
 """
 
 import json
@@ -25,6 +26,7 @@ import sys
 
 import numpy as np
 import pytest
+from torch_port_threads import _two_threads  # noqa: E402,F401
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
@@ -383,38 +385,59 @@ def test_cli_profile_under_shards(tmp_path):
 
 
 def test_mesh_and_trainer_refusals(tmp_path):
-    """An identity without an address raises as in JAX; a 2-D mesh and a
-    graph axis name ROADMAP's "Multi-GPU, part 2"; a mesh before the
-    group, or of another size, raises; a shard index outside the shards
-    raises."""
+    """An identity without an address raises as in JAX; a mesh before the
+    group, or one whose size or shape does not lay out the ranks, raises;
+    a shard index outside the shards raises; on a graph axis a property
+    model raises JAX's ValueError and an edge count the axis does not
+    divide raises (``check_divisible``); on CUDA more ranks than GPUs
+    raise (NCCL refuses two ranks on one device)."""
+    import torch
     import torch.distributed as dist
 
+    from alignn_tpu_torch.cli.train import train_for_folder
     from alignn_tpu_torch.config import TrainingConfig
     from alignn_tpu_torch.data.dataset import GraphDataset
     from alignn_tpu_torch.data.loader import BucketedLoader
+    from alignn_tpu_torch.graph.batch import BucketSpec, batch_graphs
+    from alignn_tpu_torch.graph.build import rocksalt_graphs
     from alignn_tpu_torch.parallel.dp import train_model_dp
+    from alignn_tpu_torch.parallel.graph_parallel import check_divisible
     from alignn_tpu_torch.parallel.mesh import (initialize_distributed,
                                                 make_mesh)
 
     with pytest.raises(ValueError, match="coordinator_address"):
         initialize_distributed(num_processes=2, process_id=0, device="cpu")
-    with pytest.raises(NotImplementedError, match='"Multi-GPU, part 2"'):
-        make_mesh(4, axis_names=("data", "graph"), shape=(2, 2))
     assert not dist.is_initialized()
     with pytest.raises(RuntimeError, match="initialize_distributed"):
         make_mesh()
     with pytest.raises(ValueError, match="shard_index"):
         BucketedLoader(GraphDataset([], []), 4, num_shards=2,
                        shard_index=2, device="cpu")
-    cfg = TrainingConfig.from_dict({"mesh_shape": {"data": 1, "graph": 2},
-                                    "output_dir": str(tmp_path)})
+    prop = TrainingConfig.from_dict({
+        "mesh_shape": {"data": 1, "graph": 2}, "output_dir": str(tmp_path),
+        "model": {"name": "alignn"}})
     empty = BucketedLoader(GraphDataset([], []), 4, device="cpu")
-    with pytest.raises(NotImplementedError, match='"Multi-GPU, part 2"'):
-        train_model_dp(cfg, empty, empty)
+    with pytest.raises(ValueError, match="requires an atomwise model"):
+        train_model_dp(prop, empty, empty)
+    cfg = TrainingConfig.from_dict({"output_dir": str(tmp_path)})
+    graphs = rocksalt_graphs(1)
+    batch = batch_graphs(graphs, BucketSpec.tight_for_batch(graphs),
+                         torch.device("cpu"))
+    check_divisible(batch, 2)
+    with pytest.raises(ValueError, match="must divide the mesh size 3"):
+        check_divisible(batch, 3)
+    config = tmp_path / "config.json"
+    config.write_text(json.dumps({"mesh_shape": {"data": 2, "graph": 2}}))
+    if torch.cuda.device_count() < 4:
+        with pytest.raises(ValueError, match="NCCL refuses two ranks"):
+            train_for_folder(root_dir=str(tmp_path), config_name=str(config),
+                             devices=4, device="cuda")
     initialize_distributed(f"localhost:{_free_port()}", 1, 0, device="cpu")
     try:
         with pytest.raises(ValueError, match="each rank holds one device"):
             make_mesh(2)
+        with pytest.raises(ValueError, match="does not lay out"):
+            make_mesh(1, axis_names=("data", "graph"), shape=(2, 2))
         cfg.mesh_shape = {"data": 1}
         with pytest.raises(ValueError, match="num_shards=2"):
             train_model_dp(cfg, BucketedLoader(

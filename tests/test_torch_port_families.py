@@ -33,6 +33,7 @@ import pytest
 import torch
 
 from test_torch_port_trainer import _load, write_config, write_folder
+from torch_port_threads import _two_threads  # noqa: E402,F401
 
 CPU = torch.device("cpu")
 SMALL = dict(alignn_layers=1, gcn_layers=1, hidden_features=32,

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from alignn_tpu_torch.ops import gather as tg
+from torch_port_threads import _two_threads  # noqa: E402,F401
 
 CPU = torch.device("cpu")
 LR = 1e-3

@@ -16,6 +16,7 @@ import os
 
 import numpy as np
 import pytest
+from torch_port_threads import _two_threads  # noqa: E402,F401
 
 MODEL = {"name": "alignn", "alignn_layers": 1, "gcn_layers": 1,
          "hidden_features": 16, "embedding_features": 8}

@@ -17,6 +17,7 @@ import torch
 
 from alignn_tpu.ops import pallas_fused_lstage as jf
 from alignn_tpu_torch.ops import fused_lstage as tf
+from torch_port_threads import _two_threads  # noqa: E402,F401
 
 CPU = torch.device("cpu")
 D = 4

@@ -9,6 +9,7 @@ both sides.
 import numpy as np
 import pytest
 import torch
+from torch_port_threads import _two_threads  # noqa: E402,F401
 
 DIAMOND = np.array([[0, 0, 0], [0.25, 0.25, 0.25], [0, 0.5, 0.5],
                     [0.25, 0.75, 0.75], [0.5, 0, 0.5], [0.75, 0.25, 0.75],

@@ -31,6 +31,7 @@ import time
 
 import numpy as np
 import pytest
+from torch_port_threads import _two_threads  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DIAMOND = np.array([[0, 0, 0], [0.25, 0.25, 0.25], [0, 0.5, 0.5],

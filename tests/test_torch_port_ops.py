@@ -14,6 +14,7 @@ import torch
 
 from alignn_tpu.ops import pallas_eggc as jk
 from alignn_tpu_torch.ops import eggc as tk
+from torch_port_threads import _two_threads  # noqa: E402,F401
 
 RTOL, ATOL = 1e-5, 1e-6  # f32, sums over <= ~20 rows in another order
 

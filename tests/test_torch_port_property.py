@@ -16,6 +16,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch_port_threads import _two_threads  # noqa: E402,F401
 
 CPU = torch.device("cpu")
 SMALL = dict(alignn_layers=2, gcn_layers=2, hidden_features=32,

@@ -18,6 +18,7 @@ import torch
 
 from alignn_tpu.ops import pallas_dense as jd
 from alignn_tpu_torch.ops import dense as td
+from torch_port_threads import _two_threads  # noqa: E402,F401
 
 CPU = torch.device("cpu")
 LR = 1e-3

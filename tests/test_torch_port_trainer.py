@@ -515,10 +515,13 @@ def test_cli_train_and_predict(tmp_path, capsys):
     np.testing.assert_allclose(
         [r["prediction"] for r in rows],
         [test_rows[os.path.basename(r["file"])] for r in rows], atol=1e-5)
-    # data parallelism is ported (tests/test_torch_port_dp.py); edge
-    # partitioning over a graph axis is not
+    # edge partitioning over a graph axis takes the atomwise model
+    # (tests/test_torch_port_gp.py); the property model is refused before
+    # any rank spawns
     graph_axis = write_config(tmp_path / "g.json", epochs=1,
                               mesh_shape={"data": 1, "graph": 2})
-    with pytest.raises(NotImplementedError, match='"Multi-GPU, part 2"'):
+    with pytest.raises(ValueError, match="requires an atomwise model"):
         train.main(["--root_dir", root, "--config_name", graph_axis,
+                    "--output_dir", str(tmp_path / "g"),
                     "--devices", "2", "--device", "cpu"])
+    assert not os.path.exists(tmp_path / "g")

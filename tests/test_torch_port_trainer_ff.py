@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 from test_torch_port_trainer import _load, write_config, write_folder
+from torch_port_threads import _two_threads  # noqa: E402,F401
 
 FF_MODEL = {"name": "alignn_atomwise", "alignn_layers": 1, "gcn_layers": 1,
             "hidden_features": 32, "embedding_features": 16,
