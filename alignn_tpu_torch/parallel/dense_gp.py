@@ -47,6 +47,7 @@ from alignn_tpu_torch.parallel.gp_batch import host
 from alignn_tpu_torch.parallel.gp_model import share_parameters
 from alignn_tpu_torch.parallel.mesh import (Axis, Mesh, all_gather,
                                             all_reduce_sum,
+                                            collective_exchange,
                                             ordered_collectives, ring_shift)
 
 GRAPH_AXIS = "graph"
@@ -302,12 +303,14 @@ def halo_exchange(table: torch.Tensor, send_idx: torch.Tensor,
     d = len(steps) + 1
     parts = [table]
     off = 0
-    for k in range(1, d):
-        s = steps[k - 1]
-        if s == 0:
-            continue
-        parts.append(ring_shift(table[send_idx[off:off + s]], axis, -k))
-        off += s
+    with collective_exchange():
+        for k in range(1, d):
+            s = steps[k - 1]
+            if s == 0:
+                continue
+            parts.append(ring_shift(table[send_idx[off:off + s]], axis,
+                                    -k))
+            off += s
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 

@@ -36,9 +36,11 @@ from alignn_tpu_torch.ops.basis import _clip_cos, cutoff_function_based_edges
 from alignn_tpu_torch.ops.eggc import (gather_nodes, sorted_gather,
                                        sorted_segment_sum)
 from alignn_tpu_torch.parallel.gp_batch import RingSteps
-from alignn_tpu_torch.parallel.mesh import (Axis, _chained, _next_token,
+from alignn_tpu_torch.parallel import mesh as meshlib
+from alignn_tpu_torch.parallel.mesh import (Axis, _audit_label, _backward_of,
+                                            _chained, _next_token, _nbytes,
                                             _shift, all_reduce_sum,
-                                            ring_shift)
+                                            collective_exchange, ring_shift)
 
 
 def ring_mode() -> str:
@@ -52,7 +54,7 @@ def ring_mode() -> str:
 class _RingBroadcast(torch.autograd.Function):
     @staticmethod
     def forward(ctx, buf: torch.Tensor, axis: Axis, token):
-        ctx.axis = axis
+        ctx.axis, ctx.audit_label = axis, _audit_label()
         bufs = [buf]
         for _ in range(1, axis.size):
             bufs.append(_shift(bufs[-1], axis, 1))
@@ -63,8 +65,9 @@ class _RingBroadcast(torch.autograd.Function):
         # g[k] is the cotangent of the shard of rank c - k: each returns
         # to its producer by its own shift, independent of the others
         out = g[0]
-        for k in range(1, ctx.axis.size):
-            out = out + ring_shift(g[k], ctx.axis, -k)
+        with _backward_of(ctx):
+            for k in range(1, ctx.axis.size):
+                out = out + ring_shift(g[k], ctx.axis, -k)
         return out, None, None
 
 
@@ -74,7 +77,13 @@ def ring_broadcast(buf: torch.Tensor, axis: Axis) -> torch.Tensor:
     chain of G-1 neighbour shifts; backward: one shift by -k a row (each a
     :func:`~alignn_tpu_torch.parallel.mesh.ring_shift`, so the backward is
     differentiable again)."""
-    return _chained(_RingBroadcast, buf, axis)
+    rec = meshlib.RECORDER
+    if rec is None or axis.size == 1:
+        return _chained(_RingBroadcast, buf, axis)
+    with rec.exchange():
+        return rec.collective("shift", buf, 1, _nbytes(buf),
+                              lambda: _chained(_RingBroadcast, buf, axis),
+                              repeat=axis.size - 1, axis_size=axis.size)
 
 
 def _step_gather(buf: torch.Tensor, st: Incidence) -> torch.Tensor:
@@ -92,14 +101,16 @@ def ring_cosines(r_loc: torch.Tensor, ring: RingSteps,
     bufs = ring_broadcast(r_loc, axis) if gather else None
     buf = r_loc
     parts = []
-    for k, st in enumerate(ring.steps):
-        r1 = -_step_gather(bufs[k] if gather else buf, st)
-        r2 = sorted_gather(r_loc, st.dst)
-        num = torch.sum(r1 * r2, dim=1)
-        den = torch.linalg.norm(r1, dim=1) * torch.linalg.norm(r2, dim=1)
-        parts.append(_clip_cos(num / torch.clamp_min(den, 1e-12)))
-        if not gather and k + 1 < ring.n_shards:
-            buf = ring_shift(buf, axis, 1)
+    with collective_exchange():
+        for k, st in enumerate(ring.steps):
+            r1 = -_step_gather(bufs[k] if gather else buf, st)
+            r2 = sorted_gather(r_loc, st.dst)
+            num = torch.sum(r1 * r2, dim=1)
+            den = torch.linalg.norm(r1, dim=1) * torch.linalg.norm(r2,
+                                                                  dim=1)
+            parts.append(_clip_cos(num / torch.clamp_min(den, 1e-12)))
+            if not gather and k + 1 < ring.n_shards:
+                buf = ring_shift(buf, axis, 1)
     return torch.cat(parts)
 
 
@@ -145,20 +156,20 @@ class RingEdgeGatedGraphConv(EdgeGatedGraphConv):
         num = m_loc.new_zeros((e_loc, f), dtype=torch.float32)
         den = m_loc.new_zeros((e_loc, f), dtype=torch.float32)
         m_lg = []
-        for k, st in enumerate(ring.steps):
-            cat_r = _step_gather(bufs[k] if gather else buf, st)
-            m_k = cat_r[:, :f] + sorted_gather(dst_gate, st.dst) \
-                + edge_gate[off[k]:off[k + 1]]
-            sigma = torch.sigmoid(m_k) * ring.mask[off[k]:off[k + 1],
-                                                   None]
-            agg = sorted_segment_sum(
-                torch.cat([sigma * cat_r[:, f:], sigma], dim=-1).float(),
-                st.dst)
-            num = num + agg[:, :f]
-            den = den + agg[:, f:]
-            m_lg.append(m_k)
-            if not gather and k + 1 < ring.n_shards:
-                buf = ring_shift(buf, axis, 1)
+        with collective_exchange():
+            for k, st in enumerate(ring.steps):
+                cat_r = _step_gather(bufs[k] if gather else buf, st)
+                m_k = cat_r[:, :f] + sorted_gather(dst_gate, st.dst) \
+                    + edge_gate[off[k]:off[k + 1]]
+                sigma = torch.sigmoid(m_k) * ring.mask[off[k]:off[k + 1],
+                                                       None]
+                agg = sorted_segment_sum(torch.cat(
+                    [sigma * cat_r[:, f:], sigma], dim=-1).float(), st.dst)
+                num = num + agg[:, :f]
+                den = den + agg[:, f:]
+                m_lg.append(m_k)
+                if not gather and k + 1 < ring.n_shards:
+                    buf = ring_shift(buf, axis, 1)
         h = (num / (den + 1e-6)).to(m_loc.dtype)
         x_new = F.silu(self.norm_nodes(self.src_update(m_loc) + h))
         e_new = F.silu(self.norm_edges(torch.cat(m_lg)))

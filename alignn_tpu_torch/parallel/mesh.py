@@ -36,7 +36,11 @@ through a host copy on each side (:func:`shift_transport`); the compute
 stays on the card.  The all-reduce takes CUDA tensors under both backends,
 and :func:`all_gather` is an all-reduce of the tensor placed in its slot.
 :data:`COLLECTIVE_STATS` adds up the calls, bytes and host seconds of the
-collectives of this module.
+collectives of this module.  While
+:func:`~alignn_tpu_torch.parallel.collective_audit.record_collectives` is
+open (:data:`RECORDER`), each differentiable collective also reports its
+kind, payload, phase and shift distance to it; with none open that costs
+one test of a module global.
 """
 
 from __future__ import annotations
@@ -65,6 +69,33 @@ _RANK_DEVICE: Optional[torch.device] = None
 # calls, bytes moved (sent, or summed) and host seconds of the collectives
 # below, for a caller that splits a step's time (chip_smoke.py)
 COLLECTIVE_STATS: Dict[str, float] = {"calls": 0, "bytes": 0, "seconds": 0.0}
+
+
+# the recorder of parallel.collective_audit.record_collectives while one is
+# open, else None
+RECORDER = None
+
+
+def _audit_label():
+    """The open recorder's label of the collective being made (stored on
+    its Function's ctx, so that its backward reports under it)."""
+    return None if RECORDER is None else RECORDER.label()
+
+
+def _backward_of(ctx):
+    """Around a collective Function's backward: its collectives report in
+    the transpose phase, under the forward's label."""
+    if RECORDER is None:
+        return contextlib.nullcontext()
+    return RECORDER.transposing(getattr(ctx, "audit_label", None))
+
+
+def collective_exchange():
+    """Marks the collectives made inside as one exchange (a ring, or one
+    halo exchange) for the open recorder; nothing when none is open."""
+    if RECORDER is None:
+        return contextlib.nullcontext()
+    return RECORDER.exchange()
 
 
 def reset_collective_stats() -> None:
@@ -249,7 +280,7 @@ class _AllReduceSum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, group, token):
-        ctx.group = group
+        ctx.group, ctx.audit_label = group, _audit_label()
         out = torch.clone(x, memory_format=torch.contiguous_format)
         t0 = time.perf_counter()
         dist.all_reduce(out, group=group)
@@ -258,12 +289,16 @@ class _AllReduceSum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor, _token_grad):
-        return _chained(_AllReduceSum, grad, ctx.group), None, None
+        with _backward_of(ctx):
+            return all_reduce_sum(grad, ctx.group), None, None
 
 
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of `x` over the ranks of `group`, differentiable."""
-    return _chained(_AllReduceSum, x, group)
+    if RECORDER is None:
+        return _chained(_AllReduceSum, x, group)
+    return RECORDER.collective("all_reduce", x, 0, _nbytes(x),
+                               lambda: _chained(_AllReduceSum, x, group))
 
 
 def all_reduce_mean_(flat: torch.Tensor, group) -> torch.Tensor:
@@ -273,9 +308,13 @@ def all_reduce_mean_(flat: torch.Tensor, group) -> torch.Tensor:
     return flat.div_(dist.get_world_size(group))
 
 
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
 def _count(t0: float, x: torch.Tensor) -> None:
     COLLECTIVE_STATS["calls"] += 1
-    COLLECTIVE_STATS["bytes"] += x.numel() * x.element_size()
+    COLLECTIVE_STATS["bytes"] += _nbytes(x)
     COLLECTIVE_STATS["seconds"] += time.perf_counter() - t0
 
 
@@ -312,19 +351,24 @@ def _shift(x: torch.Tensor, axis: Axis, k: int) -> torch.Tensor:
 class _RingShift(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x: torch.Tensor, axis: Axis, k: int, token):
-        ctx.axis, ctx.k = axis, k
+        ctx.axis, ctx.k, ctx.audit_label = axis, k, _audit_label()
         return _shift(x, axis, k), _next_token(token)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor, _token_grad):
-        return ring_shift(g, ctx.axis, -ctx.k), None, None, None
+        with _backward_of(ctx):
+            return ring_shift(g, ctx.axis, -ctx.k), None, None, None
 
 
 def ring_shift(x: torch.Tensor, axis: Axis, k: int = 1) -> torch.Tensor:
     """The `x` of the rank k places before this one along `axis` (JAX's
     ``ppermute`` with pairs ``(j, (j + k) % d)``); differentiable, its
     backward the shift by -k."""
-    return _chained(_RingShift, x, axis, k)
+    if RECORDER is None or k % axis.size == 0:
+        return _chained(_RingShift, x, axis, k)
+    return RECORDER.collective("shift", x, k, _nbytes(x),
+                               lambda: _chained(_RingShift, x, axis, k),
+                               axis_size=axis.size)
 
 
 def all_gather(x: torch.Tensor, axis: Axis) -> torch.Tensor:
@@ -338,4 +382,9 @@ def all_gather(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     before = x.new_zeros((axis.index * n,) + tuple(x.shape[1:]))
     after = x.new_zeros(((axis.size - axis.index - 1) * n,)
                         + tuple(x.shape[1:]))
-    return all_reduce_sum(torch.cat([before, x, after]), axis.group)
+    if RECORDER is None:
+        return all_reduce_sum(torch.cat([before, x, after]), axis.group)
+    return RECORDER.collective(
+        "all_gather", x, 0, _nbytes(x) * axis.size,
+        lambda: _chained(_AllReduceSum, torch.cat([before, x, after]),
+                         axis.group))

@@ -4,9 +4,11 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --segments [--root DIR]
     python3 chip_smoke.py --pairs [--steps] [--root DIR]
-    python3 chip_smoke.py --dp | --gp | --bf16-order
+    python3 chip_smoke.py --dp | --gp | --scripts | --bf16-order
 
-``--dp`` runs phase 13 alone, ``--gp`` phase 14; ``--bf16-order`` runs bench.py's bf16
+``--dp`` runs phase 13 alone, ``--gp`` phase 14, ``--scripts`` phase 12b
+(building its own small trained model and labelled cells where
+``train_cli`` has not run); ``--bf16-order`` runs bench.py's bf16
 dense force step three times in one process and reports whether the
 backward's operations keep their order (:func:`order_probe`).
 ``--segments`` runs K1 and K2 alone (phase 2's K1/K2 part at the 512-atom
@@ -19,7 +21,10 @@ prints an ``{"ok": ...}`` line; ``--root DIR`` imports the port from the
 checkout at DIR (another commit, for an A/B in one call).
 
 Phases:
-1. set-up: the card's name and power limit, TF32 off, the CUDA kernels
+1. set-up: the card probed in a fresh process through
+   ``alignn_tpu_torch.backend_retry`` (a transient failure retried
+   there, each retry printed; none swallowed), the card's name and power
+   limit, TF32 off, the CUDA kernels
    built from ``alignn_tpu_torch/csrc`` (build seconds printed; registers
    and spills of dense.cu's K5a/K5b and of eggc.cu's kernels);
 2. every kernel of the serving and training paths against its plain
@@ -165,6 +170,17 @@ Phases:
    run prints ms a call or step, the device's busy share and launches
    per kernel, and holds its need/banned launch lists.
 
+12b. the campaign scripts (``scripts``): ev_curve, cubic_mat_relax,
+   defect and plot_phonons_ff with docs/mlearn_r4/Si on si8 and si64
+   (si64's phonons: si8 on the 2x2x2 supercell), predict_db on 16 of
+   train_cli's rocksalt POSCARs with its trained model, train_mlearn for
+   one epoch on train_cli's 40 labelled si64 cells; each run's seconds
+   and launches, and its result against the CPU port's run of the same
+   script (si8, predict_db; si64 through cubic_mat_relax's relaxed cell;
+   train_mlearn's first step in float64), run meanwhile by a process of
+   this script (``--scripts-cpu``).  ``python3 chip_smoke.py --scripts``
+   runs it alone.
+
 13. data parallelism, the server and the legacy CLI (``dp_phases``):
    ``dp_train`` runs bench.py's default E/F/S step (bf16, 64 rocksalt
    cells, dense and sparse) through ``make_dp_train_step`` on an NCCL
@@ -208,7 +224,14 @@ Phases:
    against the standard step (losses, gradients, ms and device ms), each
    forward-mode rule against ``torch.func.jvp`` of its plain version;
    ``gated_bwd``: bench.py's dense step on 16 cells with
-   ``ALIGNN_TPU_GATED_BWD_OP=1`` against without it.  The ranks' logs
+   ``ALIGNN_TPU_GATED_BWD_OP=1`` against without it.  Each si512 leg is
+   also recorded once (``collective_audit.audit_gp_forward``): shift
+   counts and bytes a phase, equal to the analytic model to the byte, the
+   forward ring payloads' overlap verdict, the reverse's chain links and
+   the profiler's overlap finding; rank 0's one-process step and forward
+   device ms anchor ``parallel.link_projection``, whose rows (projections
+   from published link bandwidths) are printed and whose anchor is
+   written to ``build/gp/link_anchor.json``.  The ranks' logs
    (stages, memory, a stack dump of a rank that hangs) go to
    ``build/gp/logs/``.
 
@@ -4217,6 +4240,316 @@ def pairs_probe(steps: bool) -> int:
 # warm-model server and the legacy CLI
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# the campaign scripts (alignn_tpu_torch/scripts)
+# ---------------------------------------------------------------------------
+
+SCRIPTS_DIR = os.path.join(REPO, "build", "scripts")
+FF_SCRIPTS = ("ev_curve", "cubic_mat_relax", "defect", "plot_phonons_ff")
+PREDICT_CELLS = 16     # of train_cli's rocksalt POSCARs
+# card vs CPU phonon frequencies: F 5e-4 eV/A over the 0.02 A central
+# difference is 0.025 eV/A^2 in a force constant, about 0.01 THz at Si's
+# optical frequencies
+PHONON_TOL_THZ = 1e-2
+SCRIPTS_CPU_TIMEOUT_S = 300   # the CPU port's runs, after the card's
+# train_mlearn's batch: its first step is held against the CPU port in
+# float64, which takes the host about 20 s a 64-atom cell
+MLEARN_BATCH = 2
+
+
+def ff_script_args(name: str, path: str, out: str,
+                   supercell: str = "1,1,1") -> list:
+    """The arguments of FF script `name` on the POSCAR at `path`, writing
+    beside `out`: the scripts' defaults, but the cell itself as the
+    vacancy supercell and `supercell` as the phonons'."""
+    if name == "plot_phonons_ff":
+        return ["--model_path", MODEL_DIR, "--file_path", path,
+                "--supercell", supercell, "--output_prefix", out]
+    args = ["--model_path", MODEL_DIR, path, "--output", out + ".json"]
+    return args + (["--supercell", "1,1,1"] if name == "defect" else [])
+
+
+def run_script(name: str, args: list) -> tuple:
+    """(result, seconds) of ``scripts.<name>.main(args)``, its printing
+    swallowed."""
+    import importlib
+
+    mod = importlib.import_module(f"alignn_tpu_torch.scripts.{name}")
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = mod.main(args)
+    return res, time.perf_counter() - t
+
+
+def _jsonable(x):
+    return np.asarray(x).tolist()
+
+
+def scripts_cpu_main(jobs_path: str) -> int:
+    """``--scripts-cpu JOBS``: the CPU port's runs of the jobs in the json
+    file JOBS ({key: [script, args]}, each run with ``--device cpu``),
+    each result written to ``<JOBS dir>/<key>.json`` with its seconds."""
+    import torch
+
+    torch.set_num_threads(4)
+    with open(jobs_path) as f:
+        jobs = json.load(f)
+    out = os.path.dirname(jobs_path)
+    for key, (name, args) in jobs.items():
+        res, seconds = run_script(name, args + ["--device", "cpu"])
+        with open(os.path.join(out, f"{key}.json"), "w") as f:
+            json.dump({"result": res, "seconds": seconds}, f,
+                      default=_jsonable)
+    return 0
+
+
+def hold_script(name: str, n_atoms: int, card, cpu) -> dict:
+    """The card's result of script `name` against the CPU port's: the
+    largest differences and whether each is within its limit."""
+    if name == "predict_db":
+        d = max(float(np.abs(np.asarray(card[k]) - np.asarray(cpu[k]))
+                    .max()) for k in card)
+        return {"predictions": d, "ok": sorted(card) == sorted(cpu)
+                and d <= 1e-5}
+    if name == "plot_phonons_ff":
+        d = float(np.abs(np.asarray(card["frequencies_THz"])
+                         - np.asarray(cpu["frequencies_THz"])).max())
+        return {"frequencies_THz": d, "ok": d <= PHONON_TOL_THZ}
+    (c,), (p,) = card.values(), cpu.values()
+    tol = CPU_TOL["energy_per_atom"]
+    if name == "ev_curve":
+        d = float(np.abs(np.asarray(c["energies"])
+                         - np.asarray(p["energies"])).max()) / n_atoms
+        return {"energy_per_atom": d, "ok": d <= tol}
+    if name == "cubic_mat_relax":
+        d = abs(c["energy"] - p["energy"]) / n_atoms
+        return {"energy_per_atom": d,
+                "a_relaxed_A": abs(c["a_relaxed"] - p["a_relaxed"]),
+                "steps": [c["steps"], p["steps"]], "ok": d <= tol}
+    d = max(max(abs(a["E_vacancy"] - b["E_vacancy"]) / (n_atoms - 1),
+                abs(a["E_bulk"] - b["E_bulk"]) / n_atoms)
+            for a, b in zip(c, p))
+    df = max(abs(a["E_formation"] - b["E_formation"]) for a, b in zip(c, p))
+    return {"energy_per_atom": d, "formation_eV": df,
+            "ok": d <= tol and df <= tol * n_atoms}
+
+
+def scripts_inputs() -> dict:
+    """The scripts' inputs: the si8 and si64 POSCARs, and from
+    ``train_cli`` (run here on a smaller folder when that phase has not
+    run) its rocksalt POSCARs, its trained property model and its 40
+    labelled si64 cells."""
+    import shutil
+
+    from alignn_tpu_torch.ff.calculator import Calculator
+
+    shutil.rmtree(SCRIPTS_DIR, ignore_errors=True)
+    os.makedirs(SCRIPTS_DIR)
+    cells = {}
+    for name, atoms in (("si8", diamond()), ("si64", rattled_supercell(2))):
+        cells[name] = (os.path.join(SCRIPTS_DIR, f"POSCAR-{name}"),
+                       atoms.num_atoms)
+        with open(cells[name][0], "w") as f:
+            f.write(atoms.to_poscar())
+    root = os.path.join(TRAIN_CLI_DIR, "rocksalt640")
+    model = os.path.join(TRAIN_CLI_DIR, "out_sparse")
+    ff_root = os.path.join(TRAIN_CLI_DIR, "si64_40")
+    made = not os.path.exists(os.path.join(model, "best_model.mpk"))
+    if made:   # --scripts alone: one epoch on 64 cells
+        root = os.path.join(SCRIPTS_DIR, "rocksalt64")
+        model = os.path.join(SCRIPTS_DIR, "out_property")
+        write_rocksalt_folder(root, 64)
+        cfg = write_json(os.path.join(SCRIPTS_DIR, "property.json"),
+                         {**PROPERTY_RUN, "epochs": 1, "n_train": 48,
+                          "n_val": 8, "n_test": 8, "batch_size": 16,
+                          "num_workers": 0})
+        with contextlib.redirect_stdout(io.StringIO()):
+            from alignn_tpu_torch.cli import train as cli_train_mod
+
+            cli_train_mod.main(["--root_dir", root, "--config_name", cfg,
+                                "--output_dir", model])
+    if not os.path.exists(os.path.join(ff_root, "id_prop.json")):
+        ff_root = os.path.join(SCRIPTS_DIR, "si64_40")
+        write_ff_folder(ff_root, Calculator(path=MODEL_DIR))
+    from alignn_tpu_torch.chem.atoms import Atoms
+
+    names = sorted(n for n in os.listdir(root) if n.startswith("POSCAR"))
+    records = [{"jid": n, "atoms": Atoms.from_file(
+        os.path.join(root, n)).to_dict()} for n in names[:PREDICT_CELLS]]
+    rec_path = write_json(os.path.join(SCRIPTS_DIR, "records.json"),
+                          records)
+    # an mlearn-like data root: Si/ with the labelled cells and the Si
+    # config cut to them (as train_cli (c))
+    mlearn = os.path.join(SCRIPTS_DIR, "mlearn_root")
+    os.makedirs(os.path.join(mlearn, "Si"))
+    shutil.copy(os.path.join(ff_root, "id_prop.json"),
+                os.path.join(mlearn, "Si", "id_prop.json"))
+    with open(os.path.join(MODEL_DIR, "config.json")) as f:
+        write_json(os.path.join(mlearn, "Si", "config.json"),
+                   {**json.load(f), "n_train": 32, "n_val": 4,
+                    "n_test": 4})
+    return {"cells": cells, "records": rec_path, "model": model,
+            "mlearn_root": mlearn, "train_cli_inputs": not made}
+
+
+def scripts_phase(failures: list) -> tuple:
+    """The campaign scripts on the card, each timed with its launches
+    counted from 0: ev_curve, cubic_mat_relax, defect and plot_phonons_ff
+    with docs/mlearn_r4/Si (4+4/256) on si8 and si64 (the vacancy
+    supercell: the cell; the phonons': si8's cell, and for si64 si8 on
+    the 2x2x2 supercell), predict_db on 16 of train_cli's rocksalt
+    POSCARs with its trained model, and train_mlearn for one epoch
+    (batch MLEARN_BATCH) on the 40 labelled si64 cells at the Si config's
+    width.  Meanwhile a process of
+    this script (``--scripts-cpu``) runs the same FF scripts on si8 and
+    predict_db on the CPU port; each card result is held against it (E
+    1e-4 eV/atom, phonon frequencies PHONON_TOL_THZ, predictions 1e-5).
+    si64 is held through cubic_mat_relax's relaxed cell: its E/F/S on the
+    card against the CPU port (CPU_TOL); its other scripts would take the
+    CPU port minutes a call.  train_mlearn's first step (StepTap) is held
+    against the CPU port in float64, as train_cli (c).  Returns (rows,
+    launches by script run)."""
+    import threading
+
+    import torch
+
+    from alignn_tpu_torch.ff.calculator import Calculator
+
+    t0 = time.perf_counter()
+    inputs = scripts_inputs()
+    cpu_dir = os.path.join(SCRIPTS_DIR, "cpu")
+    os.makedirs(cpu_dir)
+    jobs = {f"{name}_si8": [name, ff_script_args(
+        name, inputs["cells"]["si8"][0], os.path.join(cpu_dir, name))]
+        for name in FF_SCRIPTS}
+    jobs["predict_db"] = ["predict_db", [
+        "--model_dir", inputs["model"], "--records_json", inputs["records"],
+        "--output", os.path.join(cpu_dir, "predict_db.json")]]
+    jobs_path = write_json(os.path.join(cpu_dir, "jobs.json"), jobs)
+    cpu_log = open(os.path.join(SCRIPTS_DIR, "cpu.log"), "w")
+    cpu = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                            "--scripts-cpu", jobs_path],
+                           stdout=cpu_log, stderr=subprocess.STDOUT)
+    rows, launches = {"inputs": {k: v for k, v in inputs.items()
+                                 if k != "cells"}}, {}
+    card_dir = os.path.join(SCRIPTS_DIR, "card")
+    os.makedirs(card_dir)
+    try:
+        # train_mlearn first, so that its CPU hold overlaps the rest
+        out = os.path.join(card_dir, "mlearn_out")
+        reset_launches()
+        with StepTap() as tap:
+            res, seconds = run_script("train_mlearn", [
+                "--data_root", inputs["mlearn_root"], "--elements", "Si",
+                "--override", "epochs=1", f"batch_size={MLEARN_BATCH}",
+                "--output_dir", out])
+        torch.cuda.synchronize()
+        launches["train_mlearn"] = read_launches()
+        row = {"seconds": seconds, "launches": launches["train_mlearn"],
+               "launches_first_step": tap.first["launches"],
+               "result": res}
+        rows["train_mlearn"] = row
+        if not all(np.isfinite([res[0].get("test_energy_mae", np.nan),
+                                res[0].get("test_force_mae", np.nan)])):
+            failures.append(f"scripts train_mlearn: {res}")
+        hold = threading.Thread(target=lambda: row.update(
+            first_step_vs_cpu=tap.hold_against_cpu(
+                os.path.join(out, "Si"), "train_mlearn", failures,
+                dtype="float64")))
+        hold.start()
+        card = {}
+        si8 = inputs["cells"]["si8"][0]
+        for cell, (path, n) in inputs["cells"].items():
+            for name in FF_SCRIPTS:
+                key = f"{name}_{cell}"
+                # si64's phonons: si8's on the 2x2x2 (64-atom) supercell
+                args = ff_script_args(name, si8, os.path.join(
+                    card_dir, key), "2,2,2") if key == \
+                    "plot_phonons_ff_si64" else ff_script_args(
+                        name, path, os.path.join(card_dir, key))
+                reset_launches()
+                res, seconds = run_script(name, args)
+                torch.cuda.synchronize()
+                launches[key] = read_launches()
+                card[key] = json.loads(json.dumps(res, default=_jsonable))
+                rows[key] = {"seconds": seconds, "atoms": n,
+                             "launches": launches[key]}
+        reset_launches()
+        res, seconds = run_script("predict_db", [
+            "--model_dir", inputs["model"], "--records_json",
+            inputs["records"], "--output",
+            os.path.join(card_dir, "predict_db.json")])
+        torch.cuda.synchronize()
+        launches["predict_db"] = read_launches()
+        card["predict_db"] = res
+        rows["predict_db"] = {"seconds": seconds, "structures": len(res),
+                              "launches": launches["predict_db"]}
+        # si64 through its relaxed cell: the card's E/F/S on it against
+        # the CPU port's
+        (relaxed,) = card["cubic_mat_relax_si64"].values()
+        from alignn_tpu_torch.chem.atoms import Atoms
+
+        atoms = Atoms.from_dict(relaxed["atoms"])
+        got = Calculator(path=MODEL_DIR).calculate(atoms)
+        ref = Calculator(path=MODEL_DIR, device="cpu").calculate(atoms)
+        case = [({"cell": "si64 relaxed by cubic_mat_relax"}, atoms, got)]
+        check_results(case, [ref], "scripts_cpu_port", failures)
+        rows["cubic_mat_relax_si64"]["vs_cpu_port"] = case[0][0]
+        d = abs(got["energy"] - relaxed["energy"]) / atoms.num_atoms
+        rows["cubic_mat_relax_si64"]["script_energy_vs_calculator"] = d
+        hold.join()
+        cpu.wait(timeout=SCRIPTS_CPU_TIMEOUT_S)
+    finally:
+        if cpu.poll() is None:
+            cpu.kill()
+            cpu.wait()
+        cpu_log.close()
+    if cpu.returncode != 0:
+        failures.append("scripts: the CPU port's runs failed: " + open(
+            cpu_log.name).read()[-2000:])
+        return rows, launches
+    for key in list(jobs):
+        with open(os.path.join(cpu_dir, f"{key}.json")) as f:
+            ref = json.load(f)
+        name = jobs[key][0]
+        n = inputs["cells"]["si8"][1]
+        rows[key]["cpu_port_seconds"] = ref["seconds"]
+        rows[key]["vs_cpu_port"] = held = hold_script(
+            name, n, card[key], ref["result"])
+        if not held["ok"]:
+            failures.append(f"scripts {key}: card vs CPU port {held}")
+    for key, counts in launches.items():
+        # the property model's forward alone (predict_db) runs K1 only
+        need = ("K1",) if key == "predict_db" else ("K1", "K2")
+        if any(counts[k] <= 0 for k in need):
+            failures.append(f"scripts {key}: launched {counts}, needs "
+                            f"{need}")
+    rows["seconds"] = time.perf_counter() - t0
+    return rows, launches
+
+
+def scripts_probe() -> int:
+    """``--scripts``: the kernels built, then :func:`scripts_phase`
+    alone; no ``{"ok"}`` line."""
+    import torch
+
+    from alignn_tpu_torch import _build
+
+    print(smi_line(), flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+    failures: list = []
+    rows, launches = scripts_phase(failures)
+    for name, row in rows.items():
+        emit({"phase": "scripts", "part": name, "row": row}
+             if not isinstance(row, dict) else
+             {"phase": "scripts", "part": name, **row})
+    emit({"launches_scripts": launches})
+    for msg in failures:
+        print(f"chip_smoke FAILED: {msg}", file=sys.stderr)
+    return 1 if failures else 0
+
+
 DP_DIR = os.path.join(REPO, "build", "dp")
 DP_STEPS = 12
 # the rank step of the two gloo ranks: 8 cells a rank, sparse, eager
@@ -4928,8 +5261,18 @@ def gp_si512_leg(layout: str, mesh, fails: list) -> dict:
     if bool(batch.dense_D) != dense:
         fails.append(f"gp_{layout}: the Calculator built the other layout")
         return row
+    row["counts"] = {"e_pad": int(batch.src.shape[0]),
+                     "l_pad": int(batch.lg_src.shape[0]),
+                     "n_nodes": int(batch.z.shape[0]),
+                     "n_graphs": int(batch.graph_mask.shape[0])}
     if dense:
         idx = dense_gp.make_dense_gp_index(batch, axis.size)
+        # the halo plans of the projection's other axis sizes (host only)
+        row["halo_steps"] = {
+            str(d): [list(ix.node_halo.steps), list(ix.edge_halo.steps)]
+            for d in (2, 4, 8)
+            if not (batch.z.shape[0] % d or batch.src.shape[0] % d)
+            for ix in [dense_gp.make_dense_gp_index(batch, d)]}
         row["halo_rows"] = {"node": idx.node_halo.total,
                             "edge": idx.edge_halo.total,
                             "node_steps": idx.node_halo.steps,
@@ -4967,6 +5310,9 @@ def gp_si512_leg(layout: str, mesh, fails: list) -> dict:
         m.update(case[0][0])
         m["profiled"] = profiled(lambda: gp_calc.calculate(atoms))
         row[f"serve_{mode}"] = m
+        row[f"audit_{mode}"] = gp_audit(base.model, mesh, batch, layout,
+                                        mode, fails)
+        gp_log(layout, mode, "audit")
 
         model = ALIGNNAtomWise(base.model.cfg).cuda()
         model.load_state_dict(base.model.state_dict())
@@ -4989,11 +5335,19 @@ def gp_si512_leg(layout: str, mesh, fails: list) -> dict:
                 one_ms = (time.perf_counter() - t) * 1e3
                 want = ({k2: float(v) for k2, v in lo.items()},
                         grads_of(one))
-                if k == GP_STEPS - 1:   # its device time, once
+                if k == GP_STEPS - 1:   # its device time, once, and
+                    # its forward's (the energy alone), the projection's
+                    # anchor
+                    def forward():
+                        with torch.no_grad():
+                            one(batch, batch.r)
+
                     row[f"one_process_{mode}"] = {
                         "ms": one_ms, "device_ms": profiled(
                             lambda: one_step(one_state, batch))[
-                                "device_ms"]}
+                                "device_ms"],
+                        "forward_device_ms": profiled(forward)[
+                            "device_ms"]}
                 del one, one_state, one_step
                 torch.cuda.empty_cache()
                 gp_log(layout, mode, "one-process step", k)
@@ -5027,6 +5381,45 @@ def gp_si512_leg(layout: str, mesh, fails: list) -> dict:
             fails.append(f"gp_{layout} {mode}: a train step on rank "
                          f"{mesh.rank} launched {counts}, needs {need}")
     return row
+
+
+def gp_audit(model, mesh, batch, layout: str, mode: str,
+             fails: list) -> dict:
+    """One recorded and profiled E/F/S forward of the leg
+    (``collective_audit.audit_gp_forward``): shift counts and bytes by
+    phase against the analytic model of this batch's e_pad (or halo
+    plan), dtype and axis size, to the byte; the forward ring payloads'
+    overlap verdict; the reverse's chain links; the profiler's overlap
+    finding; its E/F/S against the unrecorded forward's (CPU_TOL)."""
+    from alignn_tpu_torch.parallel import collective_audit as ca
+    from alignn_tpu_torch.parallel import dense_gp, graph_parallel
+
+    t = time.perf_counter()
+    r = ca.audit_gp_forward(model, mesh, batch, "dense" if layout ==
+                            "dense" else "ring")
+    out = {**ca.summary_json(r), "seconds": time.perf_counter() - t}
+    plain = (dense_gp.make_dense_gp_forward if layout == "dense" else
+             graph_parallel.make_gp_forward)(model, mesh)(batch)
+    out["vs_unrecorded"] = diff = {
+        k: float((a - b).abs().max())
+        for k, a, b in zip(("out", "forces", "stress"), r["outputs"], plain)}
+    if not (diff["forces"] <= CPU_TOL["forces"]
+            and diff["stress"] <= CPU_TOL["stress"]):
+        fails.append(f"gp_{layout} {mode} audit: the recorded forward "
+                     f"differs from the unrecorded one by {diff}")
+    if not r["bytes_match"]:
+        fails.append(f"gp_{layout} {mode} audit: shift bytes "
+                     f"{r['summary']} differ from the analytic "
+                     f"{r['expected']}")
+    if layout != "dense" and r["summary"]["forward_overlap_capable"] \
+            is not True:
+        fails.append(f"gp_{layout} {mode} audit: a forward ring payload "
+                     f"depends on its stage's segment sum: "
+                     f"{r['exchanges']}")
+    if r["summary"]["transpose_chain_links"] is None:
+        fails.append(f"gp_{layout} {mode} audit: no reverse structure "
+                     f"recorded")
+    return out
 
 
 def gp_2d_legs(mesh, fails: list) -> dict:
@@ -5260,7 +5653,52 @@ def gp_phase(failures: list) -> dict:
         if len(shas) != 1:
             failures.append(f"gp_2d {layout}: the four ranks' parameters "
                             f"differ after the step")
+    rows["link_projection"] = link_projection_rows(got[0], failures)
     return rows
+
+
+GP_ANCHOR = os.path.join(GP_DIR, "link_anchor.json")
+
+
+def link_projection_rows(rank0: dict, failures: list) -> dict:
+    """The anchor of ``parallel.link_projection`` from rank 0's si512
+    legs (the one-process train step's and forward's device ms, sparse
+    and dense, the batch's counts, the audits at the legs' axis size and
+    the halo plans of 2, 4 and 8 ranks), written to GP_ANCHOR, and the
+    projection's rows: each a projection from a published bandwidth, not
+    a measurement."""
+    from alignn_tpu_torch.parallel import link_projection as lp
+
+    ring, dense = rank0["gp_ring"], rank0["gp_dense"]
+    with open(os.path.join(MODEL_DIR, "config.json")) as f:
+        mcfg = json.load(f)["model"]
+    anchor = {
+        "card": smi_line(), "cell": "si512_rattled",
+        "model": "docs/mlearn_r4/Si", "buf_bytes": 4,
+        "hidden": mcfg["hidden_features"],
+        "alignn_layers": mcfg["alignn_layers"],
+        "gcn_layers": mcfg["gcn_layers"],
+        "counts": {**ring["counts"],
+                   "dense_n_nodes": dense["counts"]["n_nodes"]},
+        "anchors": {
+            layout: {"t1_ms": leg[f"one_process_{mode}"]["device_ms"],
+                     "fwd_ms": leg[f"one_process_{mode}"][
+                         "forward_device_ms"],
+                     "what": "one-process E/F/S train step and energy "
+                             "forward, device ms (torch.profiler)"}
+            for layout, leg, mode in (("sparse", ring, "chain"),
+                                      ("dense", dense, "halo"))},
+        "audit_devices": ring["audit_chain"]["devices"],
+        "audit": {"chain": ring["audit_chain"]["summary"],
+                  "gather": ring["audit_gather"]["summary"],
+                  "halo": dense["audit_halo"]["summary"]},
+        "halo_steps": dense["halo_steps"]}
+    write_json(GP_ANCHOR, anchor)
+    rows = lp.projection_rows(anchor)
+    if not rows or any(r["what"] != lp.LABEL for r in rows):
+        failures.append("link_projection: no labelled rows")
+    return {"anchor": GP_ANCHOR, "label": lp.LABEL, "links": lp.LINKS,
+            "rows": rows}
 
 
 def fjvp_phase(failures: list) -> dict:
@@ -5589,6 +6027,8 @@ def main() -> int:
     args = sys.argv[1:]
     if "--root" in args:   # import the port from another checkout
         sys.path.insert(0, os.path.abspath(args[args.index("--root") + 1]))
+    if "--scripts-cpu" in args:  # the CPU port's side of the scripts phase
+        return scripts_cpu_main(args[args.index("--scripts-cpu") + 1])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU",
               file=sys.stderr)
@@ -5615,12 +6055,30 @@ def main() -> int:
         return dp_probe()
     if "--gp" in args:
         return gp_probe()
+    if "--scripts" in args:
+        return scripts_probe()
     if "--bf16-order" in args:
         return order_probe()
     from alignn_tpu_torch import _build
     from alignn_tpu_torch.ff.calculator import Calculator
     from alignn_tpu_torch.graph.batch import batch_graphs
 
+    # the card, probed in a fresh process before the first phase; a
+    # transient failure is retried there, each retry on a line of its own
+    from alignn_tpu_torch.backend_retry import (ProbesExhausted,
+                                                probe_devices_subprocess,
+                                                retry_transient)
+
+    t = time.perf_counter()
+    try:
+        retry_transient(probe_devices_subprocess, timeout_s=180.0,
+                        attempts=3, backoffs=(10, 20),
+                        log=lambda m: emit({"phase": "backend_probe",
+                                            "retry": m}))
+    except Exception as e:
+        raise ProbesExhausted(f"the card failed its probes: "
+                              f"{type(e).__name__}: {e}") from e
+    emit({"phase": "backend_probe", "seconds": time.perf_counter() - t})
     smi = smi_line()
     print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5801,6 +6259,15 @@ def main() -> int:
     emit({"phase": "model_families", "part": "total",
           "seconds": time.perf_counter() - t})
 
+    # the campaign scripts on train_cli's inputs: counts from 0 over each
+    # script run
+    script_rows, script_launches = scripts_phase(failures)
+    for name, row in script_rows.items():
+        emit({"phase": "scripts", "part": name, "row": row}
+             if not isinstance(row, dict) else
+             {"phase": "scripts", "part": name, **row})
+    torch.cuda.empty_cache()
+
     # data parallelism (NCCL at world size 1, two gloo ranks), the
     # server and the legacy CLI: counts from 0 over each run
     t = time.perf_counter()
@@ -5868,6 +6335,9 @@ def main() -> int:
                 layout: counts[key] for layout, counts in dp_launches.items()},
             "launches_per_serve_request": {
                 req: counts[key] for req, counts in serve_launches.items()},
+            # each campaign script's run, counted from 0
+            "launches_scripts": {
+                run: counts[key] for run, counts in script_launches.items()},
             # the graph-parallel legs' profiled steps (rank 0) and the
             # fjvp step's
             "launches_per_gp_step": {

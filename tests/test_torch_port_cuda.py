@@ -11,7 +11,9 @@ MD and FIRE loops captured as CUDA graphs against the same loops run
 eagerly, and one captured graph across two chunks whose segments need
 different work-item counts; last the model families: eALIGNN served
 sparse and dense, the train steps of the extra-features heads and of
-eALIGNN, and iCalculator.
+eALIGNN, and iCalculator; then the campaign scripts (the FF scripts on the
+card against the CPU port) and the collective recorder on graph-parallel
+legs whose tensors live on the card.
 
 Every test here is marked ``cuda`` and skips on a host without a GPU.
 This file imports torch and numpy only (the card's host has no JAX), so
@@ -1086,3 +1088,109 @@ def test_icalculator_cuda_matches_cpu(cuda, tmp_path):
         np.testing.assert_allclose(got, ref, rtol=0,
                                    atol=1e-4 * (np.abs(ref).max() + 1e-6),
                                    err_msg=key)
+
+
+# ---------------------------------------------------------------------------
+# the campaign scripts and the collective audit
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["ev_curve", "cubic_mat_relax", "defect",
+                                  "plot_phonons_ff"])
+def test_ff_scripts_cuda_match_cpu(cuda, name, tmp_path):
+    """Each FF script with docs/mlearn_r4/Si on the 8-atom diamond cell
+    (vacancy and phonon supercell: the cell), on the card and on the
+    CPU: energies within 1e-4 eV/atom, phonon frequencies within 1e-2 THz
+    (the 5e-4 eV/A force limit over the 0.02 A central difference)."""
+    import contextlib
+    import importlib
+    import io
+
+    from alignn_tpu_torch.chem.atoms import Atoms
+
+    mod = importlib.import_module(f"alignn_tpu_torch.scripts.{name}")
+    atoms = Atoms(lattice_mat=np.eye(3) * 5.43, elements=["Si"] * 8,
+                  frac_coords=[[0, 0, 0], [0.25, 0.25, 0.25], [0, .5, .5],
+                               [.25, .75, .75], [.5, 0, .5],
+                               [.75, .25, .75], [.5, .5, 0],
+                               [.75, .75, .25]])
+    poscar = str(tmp_path / "POSCAR")
+    with open(poscar, "w") as f:
+        f.write(atoms.to_poscar())
+    model = os.path.join(REPO, "docs", "mlearn_r4", "Si")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        prefix = str(tmp_path / dev)
+        if name == "plot_phonons_ff":
+            args = ["--model_path", model, "--file_path", poscar,
+                    "--supercell", "1,1,1", "--output_prefix", prefix]
+        else:
+            args = ["--model_path", model, poscar, "--output",
+                    prefix + ".json"]
+            args += ["--supercell", "1,1,1"] if name == "defect" else []
+        with contextlib.redirect_stdout(io.StringIO()):
+            out[dev] = mod.main(args + ["--device", dev])
+    if name == "plot_phonons_ff":
+        np.testing.assert_allclose(out["cuda"]["frequencies_THz"],
+                                   out["cpu"]["frequencies_THz"], rtol=0,
+                                   atol=1e-2)
+        return
+    (card,), (ref,) = out["cuda"].values(), out["cpu"].values()
+    if name == "ev_curve":
+        np.testing.assert_allclose(np.asarray(card["energies"]) / 8,
+                                   np.asarray(ref["energies"]) / 8,
+                                   rtol=0, atol=1e-4)
+    elif name == "cubic_mat_relax":
+        assert abs(card["energy"] - ref["energy"]) / 8 <= 1e-4
+    else:
+        for a, b in zip(card, ref):
+            assert abs(a["E_vacancy"] - b["E_vacancy"]) / 7 <= 1e-4
+            assert abs(a["E_bulk"] - b["E_bulk"]) / 8 <= 1e-4
+
+
+def test_collective_audit_on_cuda_gp_legs(cuda, tmp_path):
+    """``tests/torch_port_audit_worker.py`` with its model and batches on
+    the card (four gloo ranks sharing it, host-staged shifts): every
+    recorded leg's shift bytes equal the analytic model, the forward ring
+    payloads are overlap-capable, the chain reverse links D-2 hops a ring
+    over four ranks, the gather and halo reverses none, and recording
+    changes no result."""
+    import socket
+    import subprocess
+    import sys
+
+    worker = os.path.join(REPO, "tests", "torch_port_audit_worker.py")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ,
+           "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH",
+                                                            "")}
+    procs = [subprocess.Popen(
+        [sys.executable, worker, str(r), "4", str(port), str(tmp_path),
+         "cuda"], env=env, cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT) for r in range(4)]
+    try:
+        logs = [p.communicate(timeout=300)[0].decode(errors="replace")
+                for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert all(p.returncode == 0 for p in procs), logs
+    with open(tmp_path / "audit.json") as f:
+        got = json.load(f)
+    for devices in ("d2", "d4"):
+        for mode in ("chain", "gather", "halo"):
+            run = got[devices][mode]
+            assert run["bytes_match"] is True, (devices, mode)
+            for a, b in zip(run["recorded"], run["unrecorded"]):
+                np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                           rtol=1e-5, atol=1e-6)
+        for mode in ("chain", "gather"):
+            assert got[devices][mode]["summary"][
+                "forward_overlap_capable"] is True
+    assert got["d4"]["chain"]["summary"]["transpose_chain_links"] == 4
+    assert got["d4"]["gather"]["summary"]["transpose_chain_links"] == 0
+    assert got["d4"]["halo"]["summary"]["transpose_chain_links"] == 0
+    assert got["negative"]["capable"] == [False, True]
