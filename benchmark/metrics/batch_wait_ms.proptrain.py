@@ -1,0 +1,3 @@
+"""batch_wait_ms of the proptrain cell (harness/readers.py)."""
+
+from harness.readers import batch_wait_ms as read  # noqa: F401

@@ -1,0 +1,3 @@
+"""device_idle of the fftrain cell (harness/readers.py)."""
+
+from harness.readers import device_idle as read  # noqa: F401
