@@ -71,6 +71,7 @@ from alignn_tpu_torch.graph.dense import (AsymmetricEdgesError,
                                           dense_batch_graphs,
                                           dense_spec_for_graphs,
                                           dense_spec_from_counts)
+from alignn_tpu_torch.tracing import span
 
 
 def spec_from_counts(node_counts, edge_counts, lg_counts, batch_size: int,
@@ -103,7 +104,9 @@ def worst_case_spec(graphs: Sequence[GraphData], batch_size: int,
 
 class BucketedLoader:
     """Iterates padded GraphBatches over a :class:`GraphDataset`; with
-    ``num_shards`` > 1, shard ``shard_index``'s batch of each step."""
+    ``num_shards`` > 1, shard ``shard_index``'s batch of each step.
+    `name` prefixes the loader's spans (``<name>.build``, ``<name>.wait``;
+    :mod:`alignn_tpu_torch.tracing`)."""
 
     def __init__(self, dataset: GraphDataset, batch_size: int,
                  shuffle: bool = False, drop_last: bool = False,
@@ -116,7 +119,7 @@ class BucketedLoader:
                  host_id: int = 0, num_hosts: int = 1,
                  prefetch: int = 2, dense: bool = False,
                  device: Optional[torch.device | str] = None,
-                 shard_index: int = 0):
+                 shard_index: int = 0, name: str = "loader"):
         if not 0 <= shard_index < max(num_shards, 1):
             raise ValueError(f"shard_index {shard_index} is not one of "
                              f"the {num_shards} shards")
@@ -126,6 +129,7 @@ class BucketedLoader:
         self.drop_last = drop_last or num_shards > 1
         self.num_shards = max(num_shards, 1)
         self.shard_index = shard_index
+        self._build_span, self._wait_span = f"{name}.build", f"{name}.wait"
         self.atom_features = atom_features
         self.target_width = target_width
         self.atomwise_width = atomwise_width
@@ -247,7 +251,9 @@ class BucketedLoader:
         n_steps = len(self)
         if self.prefetch <= 0 or n_steps <= 1:
             for s in range(n_steps):
-                yield self._batch_for_step(order, s)
+                with span(self._wait_span), span(self._build_span):
+                    batch = self._batch_for_step(order, s)
+                yield batch
             return
         # a background thread packs, pads and copies the next batches while
         # the device runs the current step
@@ -259,7 +265,8 @@ class BucketedLoader:
                 for s in range(n_steps):
                     if stop.is_set():
                         return
-                    with DEVICE_WORK_LOCK:    # not during a capture
+                    with span(self._build_span), DEVICE_WORK_LOCK:
+                        # the lock: not during a capture
                         batch = self._batch_for_step(order, s)
                     q.put(("ok", batch))
                 q.put(("done", None))
@@ -270,7 +277,8 @@ class BucketedLoader:
         t.start()
         try:
             while True:
-                kind, payload = q.get()
+                with span(self._wait_span):
+                    kind, payload = q.get()
                 if kind == "done":
                     return
                 if kind == "err":
@@ -476,13 +484,14 @@ def get_train_val_loaders(
                   bucket_slack=bucket_slack, dense=dense, device=device)
     train_loader = BucketedLoader(train_ds, batch_size, shuffle=True,
                                   drop_last=True, num_shards=num_shards,
-                                  shard_index=shard_index, **shared)
+                                  shard_index=shard_index,
+                                  name="train_loader", **shared)
     # a val split smaller than one batch keeps its partial batch instead
     # of validating on nothing
     val_loader = BucketedLoader(val_ds, batch_size, shuffle=False,
                                 drop_last=len(val_ds) >= batch_size,
-                                **shared)
+                                name="val_loader", **shared)
     test_loader = BucketedLoader(test_ds, 1, shuffle=False, drop_last=False,
-                                 **shared)
+                                 name="test_loader", **shared)
     train_loader.graph_stats = stats
     return train_loader, val_loader, test_loader, mad

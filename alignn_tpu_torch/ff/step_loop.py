@@ -51,6 +51,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from alignn_tpu_torch import DEVICE_WORK_LOCK
+from alignn_tpu_torch.tracing import span
 
 WARMUP_STEPS = 2   # eager steps on a side stream before the capture
 
@@ -148,14 +149,17 @@ class StepLoop:
     `pool` is a memory pool (``torch.cuda.graph_pool_handle()``) shared
     with other loops' graphs, or None for a pool of the graph's own.
     The step may return outputs (tensors, or dicts, lists and tuples of
-    them); :meth:`run` returns those of the last step.
+    them); :meth:`run` returns those of the last step.  `name` prefixes
+    the loop's spans (``<name>.eager``, ``.capture``, ``.replay``;
+    :mod:`alignn_tpu_torch.tracing`).
     """
 
     captures = 0   # graphs captured in this process (read by chip_smoke)
 
     def __init__(self, step: Callable[[], Any], batch,
                  generators: Sequence[torch.Generator] = (),
-                 cuda_graph: bool = True, pool=None):
+                 cuda_graph: bool = True, pool=None,
+                 name: str = "step_loop"):
         self.step = step
         self.batch = batch
         self._leaves, self.signature = batch_leaves(batch)
@@ -167,6 +171,8 @@ class StepLoop:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.static_out: Any = None      # the captured step's outputs
         self.capture_ms = 0.0            # host ms the capture took
+        self._spans = tuple(f"{name}.{what}"
+                            for what in ("eager", "capture", "replay"))
 
     def load_batch(self, batch):
         """Copy `batch`'s tensors into the loop's own (same signature)."""
@@ -208,23 +214,28 @@ class StepLoop:
     def run(self, n: int):
         """Advance the state by `n` steps; returns the last step's
         outputs (a replay's copied out of the graph's static tensors)."""
+        eager, capture, replay = self._spans
         if not self.use_graph:
             out = None
-            for _ in range(n):
-                out = self.step()
+            with span(eager):
+                for _ in range(n):
+                    out = self.step()
             return out
         if self.graph is None:
             warm = min(n, WARMUP_STEPS - self.warmed)
             out = None
             if warm > 0:
-                out = self._warm_up(warm)
+                with span(eager):
+                    out = self._warm_up(warm)
                 n -= warm
             if n == 0:
                 return out
-            self._capture()
-        for _ in range(n):
-            self.graph.replay()
-        return map_tensors(torch.clone, self.static_out)
+            with span(capture):
+                self._capture()
+        with span(replay):
+            for _ in range(n):
+                self.graph.replay()
+            return map_tensors(torch.clone, self.static_out)
 
 
 _POOLS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
@@ -238,12 +249,17 @@ class CompiledStep:
 
     The graphs of every CompiledStep made with the same `pool_key` (the
     train and eval steps of one model) share one memory pool.  On the
-    CPU the loops run `fn` eagerly over the same static batches.
+    CPU the loops run `fn` eagerly over the same static batches.  `name`
+    prefixes the spans of the step and its loops (``<name>.prepare``, and
+    :class:`StepLoop`'s).
     """
 
-    def __init__(self, fn: Callable[[Any], Any], pool_key: Any = None):
+    def __init__(self, fn: Callable[[Any], Any], pool_key: Any = None,
+                 name: str = "step"):
         self.fn = fn
         self.pool_key = pool_key
+        self.name = name
+        self._prepare_span = f"{name}.prepare"
         self.loops: Dict[tuple, StepLoop] = {}
 
     def _pool(self, device: torch.device):
@@ -263,16 +279,18 @@ class CompiledStep:
         return sum(loop.graph is not None for loop in self.loops.values())
 
     def __call__(self, batch):
-        batch = with_item_capacity(batch)
-        sig = batch_signature(batch)
-        loop = self.loops.get(sig)
-        if loop is None:
-            # the loop's step holds no reference back to this object, so
-            # that dropping the step frees its graphs at once
-            fn, own = self.fn, clone_batch(batch)
-            loop = StepLoop(lambda: fn(own), own,
-                            pool=self._pool(own.z.device))
-            self.loops[sig] = loop
-        else:
-            loop.load_batch(batch)
+        with span(self._prepare_span):
+            batch = with_item_capacity(batch)
+            sig = batch_signature(batch)
+            loop = self.loops.get(sig)
+            if loop is None:
+                # the loop's step holds no reference back to this object,
+                # so that dropping the step frees its graphs at once
+                fn, own = self.fn, clone_batch(batch)
+                loop = StepLoop(lambda: fn(own), own,
+                                pool=self._pool(own.z.device),
+                                name=self.name)
+                self.loops[sig] = loop
+            else:
+                loop.load_batch(batch)
         return loop.run(1)

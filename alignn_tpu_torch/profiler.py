@@ -12,6 +12,19 @@ a step timer that reports edges/s, the framework's headline throughput.
         --config_name config.json --profile DIR
 
 profiles one compiled train step on the first training batch.
+
+The trainer's own spans (:mod:`alignn_tpu_torch.tracing`: the loaders'
+batch builds and waits, each train and eval step with its preparation,
+eager steps, capture and replay, the loss fetch, validation and the
+epoch's end) record whenever a profiler session does.  To see them in
+the Chrome trace beside the kernels, run ``train_model`` inside
+:func:`trace`::
+
+    with trace("DIR"):
+        train_model(config, train_loader, val_loader)
+
+Their intervals, on the clock of the trace's events, are also in
+``tracing.recorder.intervals()``.
 """
 
 from __future__ import annotations
@@ -48,15 +61,18 @@ def _synchronize(tree) -> None:
 
 @contextlib.contextmanager
 def trace(logdir: str = "./torch_trace"):
-    """Record CPU and CUDA activity around a block and write it to
-    ``logdir/trace.json``; yields the ``torch.profiler.profile``."""
+    """Record CPU and CUDA activity around a block, on every thread (the
+    loaders' prefetch threads too), and write it to ``logdir/trace.json``;
+    yields the ``torch.profiler.profile``."""
+    from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    prof = profile(activities=activities)
+    prof = profile(activities=activities, experimental_config=(
+        _ExperimentalConfig(profile_all_threads=True)))
     prof.start()
     try:
         yield prof
@@ -100,12 +116,3 @@ def profile_step(step_fn: Callable, state, batch,
     if edges_per_batch:
         result["edges_per_s"] = edges_per_batch / dt
     return result
-
-
-def memory_stats() -> Dict:
-    """``torch.cuda.memory_stats`` for each CUDA device ({} without
-    one)."""
-    if not torch.cuda.is_available():
-        return {}
-    return {f"cuda:{i}": torch.cuda.memory_stats(i)
-            for i in range(torch.cuda.device_count())}

@@ -47,6 +47,7 @@ from alignn_tpu_torch.graph.batch import GraphBatch
 from alignn_tpu_torch.nn.ealignn import eALIGNNAtomWise, ealignn_forward
 from alignn_tpu_torch.nn.layers import MaskedBatchNorm
 from alignn_tpu_torch.nn.models import ALIGNNAtomWise, atomwise_forward
+from alignn_tpu_torch.tracing import span
 from alignn_tpu_torch.train.losses import atomwise_loss, property_loss
 from alignn_tpu_torch.train.optim import OptimizerSpec, set_lr
 
@@ -171,19 +172,22 @@ def make_train_step(model: nn.Module, criterion: str = "l1",
         optimizer.step()
         return losses
 
-    compiled = CompiledStep(fn, pool_key=model) if cuda_graph else fn
+    compiled = CompiledStep(fn, pool_key=model, name="train_step") \
+        if cuda_graph else fn
 
     def step(state: TrainState, batch: GraphBatch):
         nonlocal optimizer
-        _check_state(state, model)
-        if optimizer is not state.optimizer:
-            # graphs hold the optimizer's tensors: a new one, new graphs
-            optimizer = state.optimizer
-            if cuda_graph:
-                compiled.clear()
-        flats[:] = build_grads(model)
-        losses = compiled(batch)
-        state.step += 1
+        with span("train_step"):
+            _check_state(state, model)
+            if optimizer is not state.optimizer:
+                # graphs hold the optimizer's tensors: a new one, new
+                # graphs
+                optimizer = state.optimizer
+                if cuda_graph:
+                    compiled.clear()
+            flats[:] = build_grads(model)
+            losses = compiled(batch)
+            state.step += 1
         return state, losses
 
     step.compiled = compiled if cuda_graph else None
@@ -205,11 +209,13 @@ def make_eval_step(model: nn.Module, criterion: str = "l1",
         return ({k: v.detach() for k, v in losses.items()},
                 {k: v.detach() for k, v in res.items()})
 
-    compiled = CompiledStep(fn, pool_key=model) if cuda_graph else fn
+    compiled = CompiledStep(fn, pool_key=model, name="eval_step") \
+        if cuda_graph else fn
 
     def step(state: TrainState, batch: GraphBatch):
-        _check_state(state, model)
-        return compiled(batch)
+        with span("eval_step"):
+            _check_state(state, model)
+            return compiled(batch)
 
     step.compiled = compiled if cuda_graph else None
     return step

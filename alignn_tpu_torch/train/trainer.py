@@ -61,6 +61,7 @@ from alignn_tpu_torch.train.checkpoint import (check_feature_table,
 from alignn_tpu_torch.train.optim import build_optimizer, epoch_lr
 from alignn_tpu_torch.train.state import (create_train_state, make_eval_step,
                                           make_train_step)
+from alignn_tpu_torch.tracing import span
 
 LOSS_KEYS = ("loss", "loss1", "loss2", "loss3", "loss4", "loss5")
 
@@ -257,7 +258,8 @@ def train_model(config: TrainingConfig, train_loader: BucketedLoader,
         train_acc = []
         for batch in train_loader:
             state, losses = train_step(state, batch)
-            train_acc.append(_losses_to_host(losses))
+            with span("trainer.loss_fetch"):
+                train_acc.append(_losses_to_host(losses))
         ep_time = time.time() - ep_start
         epoch_s.append(ep_time)
         step_losses.append([m["loss"] for m in train_acc])
@@ -268,39 +270,44 @@ def train_model(config: TrainingConfig, train_loader: BucketedLoader,
                     _from_rank0(False, model_axis_name, model):
                 break
             continue
-        val_acc = [_losses_to_host(eval_step(state, batch)[0])
-                   for batch in val_loader]
-        train_metrics, val_metrics = _mean(train_acc), _mean(val_acc)
-        history_train.append([train_metrics.get(k, 0.0) for k in LOSS_KEYS])
-        history_val.append([val_metrics.get(k, 0.0) for k in LOSS_KEYS])
-        dumpjson(history_train, os.path.join(output_dir,
-                                             "history_train.json"))
-        dumpjson(history_val, os.path.join(output_dir, "history_val.json"))
-        if config.progress:
-            print(f"epoch {epoch + 1}/{config.epochs} lr {lr:.3e} "
-                  f"train {train_metrics.get('loss', 0.0):.6f} "
-                  f"val {val_metrics.get('loss', 0.0):.6f} "
-                  f"time {ep_time:.2f}s edges/s {edges_s:.3e}", flush=True)
+        with span("trainer.validation"):
+            val_acc = [_losses_to_host(eval_step(state, batch)[0])
+                       for batch in val_loader]
+        with span("trainer.epoch_end"):
+            train_metrics, val_metrics = _mean(train_acc), _mean(val_acc)
+            history_train.append([train_metrics.get(k, 0.0)
+                                  for k in LOSS_KEYS])
+            history_val.append([val_metrics.get(k, 0.0) for k in LOSS_KEYS])
+            dumpjson(history_train, os.path.join(output_dir,
+                                                 "history_train.json"))
+            dumpjson(history_val, os.path.join(output_dir,
+                                               "history_val.json"))
+            if config.progress:
+                print(f"epoch {epoch + 1}/{config.epochs} lr {lr:.3e} "
+                      f"train {train_metrics.get('loss', 0.0):.6f} "
+                      f"val {val_metrics.get('loss', 0.0):.6f} "
+                      f"time {ep_time:.2f}s edges/s {edges_s:.3e}",
+                      flush=True)
 
-        if config.write_checkpoint:
-            save_weights("current_model.mpk")
-            save_train_state(os.path.join(output_dir, "restart.mpk"), state,
-                             epoch + 1, extra={"meta": ckpt_meta})
-        # no validation set: neither the best nor the patience moves
-        if "loss" in val_metrics:
-            if val_metrics["loss"] < best_loss:
-                best_loss, no_improve = val_metrics["loss"], 0
-                if config.write_checkpoint:
-                    save_weights("best_model.mpk")
-            else:
-                no_improve += 1
-        if config.n_early_stopping is not None:
-            stop = no_improve >= config.n_early_stopping
-            if ranks > 1:
-                _from_rank0(stop, model_axis_name, model)
-            if stop:
-                print(f"early stopping at epoch {epoch + 1}")
-                break
+            if config.write_checkpoint:
+                save_weights("current_model.mpk")
+                save_train_state(os.path.join(output_dir, "restart.mpk"),
+                                 state, epoch + 1, extra={"meta": ckpt_meta})
+            # no validation set: neither the best nor the patience moves
+            if "loss" in val_metrics:
+                if val_metrics["loss"] < best_loss:
+                    best_loss, no_improve = val_metrics["loss"], 0
+                    if config.write_checkpoint:
+                        save_weights("best_model.mpk")
+                else:
+                    no_improve += 1
+            if config.n_early_stopping is not None:
+                stop = no_improve >= config.n_early_stopping
+                if ranks > 1:
+                    _from_rank0(stop, model_axis_name, model)
+                if stop:
+                    print(f"early stopping at epoch {epoch + 1}")
+                    break
 
     summary: Dict[str, Any] = {
         "best_val_loss": float(best_loss), "epochs_run": len(epoch_s),

@@ -1,0 +1,3 @@
+"""step_prep_idle_ms of the fftrain cell (harness/program_spans.py)."""
+
+from harness.program_spans import step_prep_idle_ms as read  # noqa: F401

@@ -214,8 +214,7 @@ def test_profile_step_matches_jax(tmp_path):
     from alignn_tpu.profiler import profile_step as jprofile
     from alignn_tpu_torch.graph.batch import BucketSpec, batch_graphs
     from alignn_tpu_torch.graph.build import rocksalt_graphs
-    from alignn_tpu_torch.profiler import TRACE_FILE, memory_stats, \
-        profile_step
+    from alignn_tpu_torch.profiler import TRACE_FILE, profile_step
     from alignn_tpu_torch.train.optim import build_optimizer
     from alignn_tpu_torch.train.state import (create_train_state,
                                               make_train_step)
@@ -241,7 +240,6 @@ def test_profile_step_matches_jax(tmp_path):
     with open(os.path.join(got["trace_dir"], TRACE_FILE)) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name", "").startswith("aten::") for e in events)
-    assert memory_stats() == {}       # no CUDA device here
 
 
 def test_cli_train_profile_writes_trace(tmp_path, capsys):
